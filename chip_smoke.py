@@ -4,27 +4,33 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (tolerance:
-bitwise equality) at the main path's shapes and at edge cases, then
-drives the two paths of the flagship ResNet-18 YOLOv3 at 416x416 (seeded
-random weights):
+bitwise equality) at the main paths' shapes and at edge cases, and times
+it beside its bound and the closest PyTorch library call.  Then it drives
+the two paths of two models at 416x416 (seeded random weights): the
+flagship ResNet-18 YOLOv3, whose stem runs the fused BN + pool + relu
+kernels, and ResNet-18-v2 YOLOv3, whose stem runs the pool-only kernels:
 
-  * serving: the batch-64 eval forward and 16 requests through
-    ``Predictor``, ``DetectionEngine`` and ``DynamicBatcher``;
+  * serving: the batch-64 eval forward, held against the plain stem
+    (``stem_backend="xla"``), and 16 requests through ``Predictor``,
+    ``DetectionEngine`` and ``DynamicBatcher``;
   * training: ``YOLOv3Trainer.train_step`` at batch 128 in bf16 with
     RAdam: 6 steps on one fixed batch without augmentation, whose loss
-    must fall, then 3 warm-up and 20 timed steps with each noise backend
-    (``augment_backend`` "fused" and "xla").
+    must fall, then 3 warm-up and 20 timed steps with augmentation: for
+    the flagship with each noise backend (``augment_backend`` "fused" and
+    "xla"), for v2 with "auto".
 
 Each path runs with every kernel's launch count set to 0 just before it
 and fails if one of its kernels was not launched.  Each phase prints one
-line; a failed check raises, so any failure exits non-zero.  The line
-before the last is the per-kernel JSON record, the last line
+line; a failed check raises, so any failure exits non-zero.  The seconds
+of each phase and the total come on lines of their own, then the
+per-kernel JSON record, then the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -37,6 +43,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 
+FLAGSHIP = "resnet-18"
+V2 = "resnet-18-v2"
 FLAGSHIP_HW = (416, 416)
 FLAGSHIP_BATCH = 64  # serving (bench.py --infer)
 TRAIN_BATCH = 128  # training (bench.py)
@@ -44,6 +52,14 @@ SEED = 0
 TIMED_LAUNCHES = 20  # per kernel; the median is reported
 DESCENT_STEPS = 6
 WARMUP_STEPS, TIMED_STEPS = 3, 20
+# the main-path run whose launch count each kernel's record reports
+KERNEL_PATHS = {"bn_pool_relu_eval": "serve.resnet-18",
+                "bn_pool_relu_fwd": "train.resnet-18",
+                "bn_pool_relu_bwd": "train.resnet-18",
+                "noisy_normalize": "train.resnet-18",
+                "max_pool_s2_eval": "serve.resnet-18-v2",
+                "max_pool_s2_fwd": "train.resnet-18-v2",
+                "max_pool_s2_bwd": "train.resnet-18-v2"}
 # operations the noise kernel does, counted from csrc/augment_noise.cu:
 # per element (convert, scale, select, round), extra per element of a
 # gaussian image (three hash rounds with the seed adds, the uniform, the
@@ -55,6 +71,18 @@ NOISE_OPS_ELEMENT, NOISE_OPS_GAUSS, NOISE_OPS_SP_PIXEL = 4, 63, 33
 
 def phase(name: str, **fields) -> None:
     print(f"{name}: {json.dumps(fields)}", flush=True)
+
+
+PHASE_SECONDS = {}
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Host seconds of one phase, printed on a line of its own."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    phase("seconds", phase=name, seconds=PHASE_SECONDS[name])
 
 
 def cuda_time_ms(fn, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
@@ -119,11 +147,15 @@ def reset_launches():
 def kernel_wrappers():
     from yolov3_tensorflow_tpu_torch.ops.augment_noise import noisy_normalize
     from yolov3_tensorflow_tpu_torch.ops.stem_pool import (
-        bn_pool_relu_bwd, bn_pool_relu_eval, bn_pool_relu_fwd)
+        bn_pool_relu_bwd, bn_pool_relu_eval, bn_pool_relu_fwd,
+        max_pool_s2_bwd, max_pool_s2_eval, max_pool_s2_fwd)
     return {"bn_pool_relu_eval": bn_pool_relu_eval,
             "bn_pool_relu_fwd": bn_pool_relu_fwd,
             "bn_pool_relu_bwd": bn_pool_relu_bwd,
-            "noisy_normalize": noisy_normalize}
+            "noisy_normalize": noisy_normalize,
+            "max_pool_s2_eval": max_pool_s2_eval,
+            "max_pool_s2_fwd": max_pool_s2_fwd,
+            "max_pool_s2_bwd": max_pool_s2_bwd}
 
 
 # ------------------------------------------------------------ kernels --
@@ -336,6 +368,159 @@ def check_noise_kernel(device):
     return record
 
 
+def pool_input(n, c, h, w, kind, device, seed):
+    """bf16 y (N, C, H, W) on the card for one pool-only stem case."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    y = torch.randn(n, c, h, w, generator=g)
+    if kind == "negative":
+        y = -y.abs() - 0.01
+    elif kind == "constant":  # every tap of every window equal
+        y = torch.full((n, c, h, w), -0.75)
+    elif kind == "ties":  # quantized ramp: many equal taps per window
+        y = (torch.arange(n * c * h * w) % 7 - 3).float().reshape(
+            n, c, h, w) * 0.25
+    elif kind == "nan":  # NaN taps in nine windows (see the test suite)
+        y[0, 0, 0, 0] = y[0, 1, 4, 5] = y[1, 2, 7, 6] = float("nan")
+        y[1, 3, 9, 9] = y[1, 3, 10, 10] = float("nan")
+    return y.to(device=device, dtype=torch.bfloat16)
+
+
+def library_codes(idx, ho, wo, w):
+    """Tap codes 0-8 from F.max_pool2d's flat input indices (even sizes:
+    window (r, t) starts at input (2r, 2t))."""
+    import torch
+    r = torch.arange(ho, device=idx.device)[:, None]
+    t = torch.arange(wo, device=idx.device)[None, :]
+    a = idx // w - 2 * r
+    b = idx % w - 2 * t
+    return (a * 3 + b).to(torch.uint8)
+
+
+def check_pool_kernels(device):
+    """max_pool_s2_eval, max_pool_s2_fwd (p, codes) and max_pool_s2_bwd
+    (dy) on the card vs their plain versions on the card: bitwise equal at
+    the v2 train shape [128,64,208,208] and the edge cases (odd sizes, H
+    not a multiple of 8, all negative, ties, NaN).  Times each beside its
+    bound and beside F.max_pool2d (ceil_mode, with indices for train) and
+    its backward, which compute the same function on even sizes, and says
+    whether their results are bitwise the kernels'.  Returns the three
+    kernel records."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov3_tensorflow_tpu_torch.ops.stem_pool import (
+        max_pool_s2_bwd, max_pool_s2_bwd_reference, max_pool_s2_eval,
+        max_pool_s2_fwd, max_pool_s2_reference)
+
+    n, c = TRAIN_BATCH, 64
+    h, w = FLAGSHIP_HW[0] // 2, FLAGSHIP_HW[1] // 2
+    cases = [("v2_train", (n, c, h, w), "randn"),
+             ("odd_13x11", (4, 8, 13, 11), "randn"),
+             ("h18_w10", (4, 8, 18, 10), "randn"),
+             ("all_negative", (4, 8, 16, 16), "negative"),
+             ("constant", (4, 8, 16, 16), "constant"),
+             ("ties", (4, 8, 17, 16), "ties"),
+             ("nan", (2, 4, 16, 16), "nan")]
+
+    def dp_for(p, seed):
+        g = torch.Generator(device=p.device).manual_seed(seed)
+        return torch.randn(p.shape, generator=g, device=p.device).to(
+            torch.bfloat16)
+
+    for i, (name, shape, kind) in enumerate(cases):
+        y = pool_input(*shape, kind, device, SEED + 30 + i)
+        p, codes = max_pool_s2_fwd(y)
+        p_ref, codes_ref = max_pool_s2_reference(y)
+        check_bitwise(f"max_pool_s2_fwd {name} p", p, p_ref)
+        check_bitwise(f"max_pool_s2_fwd {name} codes", codes, codes_ref)
+        check_bitwise(f"max_pool_s2_eval {name}", max_pool_s2_eval(y), p_ref)
+        dp = dp_for(p, SEED + 40 + i)
+        check_bitwise(f"max_pool_s2_bwd {name} dy",
+                      max_pool_s2_bwd(codes, dp, shape[2:]),
+                      max_pool_s2_bwd_reference(codes, dp, shape[2:]))
+        if int(codes.max()) > 8:
+            raise AssertionError(f"max_pool_s2 {name}: a code above 8")
+        if kind == "constant" and codes.any():
+            raise AssertionError("max_pool_s2 ties: not the first tap")
+        nan_windows = int(torch.isnan(p.float()).sum())
+        if kind == "nan" and nan_windows != 9:
+            raise AssertionError(f"max_pool_s2 nan: {nan_windows} NaN "
+                                 "windows, 9 expected")
+        phase("kernels.max_pool_s2.case", case=name, shape=shape,
+              bitwise_equal=True, nan_windows=nan_windows)
+
+    y_eval = pool_input(FLAGSHIP_BATCH, c, h, w, "randn", device, SEED)
+    check_bitwise("max_pool_s2_eval v2_serve", max_pool_s2_eval(y_eval),
+                  max_pool_s2_reference(y_eval, emit_codes=False))
+    y = pool_input(n, c, h, w, "randn", device, SEED)
+    p, codes = max_pool_s2_fwd(y)
+    dp = dp_for(p, SEED)
+    ho, wo = p.shape[2], p.shape[3]
+
+    # the library's versions, and whether they give the kernels' bits
+    lib_p, lib_idx = F.max_pool2d(y, 3, 2, ceil_mode=True,
+                                  return_indices=True)
+
+    def lib_bwd():
+        return torch.ops.aten.max_pool2d_with_indices_backward(
+            dp, y, [3, 3], [2, 2], [0, 0], [1, 1], True, lib_idx)
+
+    library_equal = {
+        "p": bool(torch.equal(bits(lib_p), bits(p))),
+        "codes": bool(torch.equal(library_codes(lib_idx, ho, wo, w),
+                                  codes)),
+        "dy": bool(torch.equal(bits(lib_bwd()),
+                               bits(max_pool_s2_bwd(codes, dp, (h, w))))),
+    }
+    lib_dy_err = (lib_bwd().float()
+                  - max_pool_s2_bwd(codes, dp, (h, w)).float()).abs().max()
+
+    big, small = n * c * h * w, n * c * ho * wo
+    eval_big, eval_small = FLAGSHIP_BATCH * c * h * w, \
+        FLAGSHIP_BATCH * c * ho * wo
+    # per pooled output 9 compares (eval), plus 9 code selects (train);
+    # backward: per input element its 1, 2 or 4 candidate windows (2.25
+    # on average at even sizes), one add per window
+    specs = (
+        ("max_pool_s2_eval", lambda: max_pool_s2_eval(y_eval),
+         lambda: max_pool_s2_reference(y_eval, emit_codes=False),
+         lambda: F.max_pool2d(y_eval, 3, 2, ceil_mode=True),
+         eval_big * 2 + eval_small * 2, eval_small * 9, 548,
+         [FLAGSHIP_BATCH, c, h, w]),
+        ("max_pool_s2_fwd", lambda: max_pool_s2_fwd(y),
+         lambda: max_pool_s2_reference(y),
+         lambda: F.max_pool2d(y, 3, 2, ceil_mode=True, return_indices=True),
+         big * 2 + small * (2 + 1), small * 18, 565, [n, c, h, w]),
+        ("max_pool_s2_bwd", lambda: max_pool_s2_bwd(codes, dp, (h, w)),
+         lambda: max_pool_s2_bwd_reference(codes, dp, (h, w)), lib_bwd,
+         small * (1 + 2) + big * 2, big * 2.25 + small, 571, [n, c, h, w]),
+    )
+    records = []
+    for name, fn, plain, library, nbytes, ops, line, shape in specs:
+        bound_ms, bound_by = bound(nbytes, ops)
+        kernel_ms = cuda_time_ms(fn)
+        plain_ms = cuda_time_ms(plain, iters=5)
+        library_ms = cuda_time_ms(library)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "yolov3_tensorflow_tpu_torch/ops/csrc/stem_pool.cu",
+            "replaces": f"yolov3_tensorflow_tpu/ops/stem_pool.py:{line}",
+            "max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+        phase(f"kernels.{name}", shape=shape, bytes=nbytes, ms=kernel_ms,
+              bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+              library_ms=library_ms, gbytes_per_s=nbytes / kernel_ms / 1e6)
+    phase("kernels.max_pool_s2.library", call="F.max_pool2d(y, 3, 2, "
+          "ceil_mode=True, return_indices=True) and "
+          "aten.max_pool2d_with_indices_backward", shape=[n, c, h, w],
+          bitwise_equal_to_kernels=library_equal,
+          dy_max_abs_diff=float(lib_dy_err))
+    return records
+
+
 # -------------------------------------------------------------- model --
 def seeded_state_dict(cfg, device):
     """Flagship weights from SEED, with non-trivial BN scale, bias and
@@ -359,9 +544,17 @@ def seeded_state_dict(cfg, device):
     return {k: v.to(device) for k, v in sd.items()}
 
 
+def stem_output(backbone, x):
+    """The backbone's stem (conv and pool) on normalized images."""
+    from yolov3_tensorflow_tpu_torch.models.resnet18_v2 import ResNet18V2
+    if isinstance(backbone, ResNet18V2):
+        return backbone.stem_conv_pool(x, backbone.stem)
+    return backbone.stem_conv_bn_pool_relu(x, backbone.stem)
+
+
 def check_model(cfg, sd, images, device, gpu):
-    """Flagship eval forward at batch 64 with the kernel stem and with the
-    plain composition ("xla"): stems bitwise equal, heads within 3e-2."""
+    """Eval forward at batch 64 with the kernel stem and with the plain
+    composition ("xla"): stems bitwise equal, heads within 3e-2."""
     import torch
 
     from yolov3_tensorflow_tpu_torch.infer.predict import (Predictor,
@@ -370,8 +563,7 @@ def check_model(cfg, sd, images, device, gpu):
     plain = Predictor(cfg.replace(stem_backend="xla"), sd, device)
     x = normalize_images(torch.from_numpy(images).to(device))
     with torch.inference_mode():
-        stems = [p.model.backbone.stem_conv_bn_pool_relu(
-            x, p.model.backbone.stem) for p in (fused, plain)]
+        stems = [stem_output(p.model.backbone, x) for p in (fused, plain)]
         heads = [p.predict(images) for p in (fused, plain)]
     torch.cuda.synchronize()
     if not torch.equal(stems[0].view(torch.int16),
@@ -400,7 +592,7 @@ def check_model(cfg, sd, images, device, gpu):
             fused.predict(images)
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    phase("model", input=list(cfg.input_image_size),
+    phase(f"model.{cfg.model_backbone}", input=list(cfg.input_image_size),
           batch=FLAGSHIP_BATCH, stem_bitwise_equal=True,
           head_max_abs_err_vs_plain_stem=head_err, head_tolerance=3e-2,
           eval_forward_img_per_s=FLAGSHIP_BATCH * steps / dt, gpu=gpu)
@@ -408,10 +600,12 @@ def check_model(cfg, sd, images, device, gpu):
 
 
 # -------------------------------------------------------------- serve --
-def serve(cfg, predictor, device, gpu, n_requests=16, max_batch=8):
+def serve(cfg, predictor, device, gpu, kernels, n_requests=16,
+          max_batch=8):
     """DynamicBatcher over a DetectionEngine on the card: single-image
     requests of different original sizes, each answer held against a
-    direct engine call on the same batch."""
+    direct engine call on the same batch.  Fails unless each of
+    ``kernels`` was launched while the requests were served."""
     from yolov3_tensorflow_tpu_torch.data.loader import letterbox_array
     from yolov3_tensorflow_tpu_torch.infer.server import (DetectionEngine,
                                                           DynamicBatcher,
@@ -446,9 +640,9 @@ def serve(cfg, predictor, device, gpu, n_requests=16, max_batch=8):
         launches = {k: f.launches for k, f in kernel_wrappers().items()}
     finally:
         batcher.stop()
-    if launches["bn_pool_relu_eval"] == 0:
-        raise AssertionError(f"serve: a kernel was never launched on the "
-                             f"main path: {launches}")
+    if not all(launches[k] for k in kernels):
+        raise AssertionError(f"serve {cfg.model_backbone}: a kernel was "
+                             f"never launched on the main path: {launches}")
     stats = batcher.stats.snapshot()
 
     kept, direct_ms = 0, []
@@ -473,7 +667,8 @@ def serve(cfg, predictor, device, gpu, n_requests=16, max_batch=8):
     if kept == 0:
         raise AssertionError("serve: NMS kept no box at all")
     lat = sorted(done.values())
-    phase("serve", requests=len(answers), batches=stats["batches"],
+    phase(f"serve.{cfg.model_backbone}", requests=len(answers),
+          batches=stats["batches"],
           batch_size_histogram=stats["batch_size_histogram"],
           boxes_kept=kept, p50_latency_ms=lat[len(lat) // 2] * 1e3,
           img_per_s=n_requests / wall, direct_engine_ms=direct_ms, gpu=gpu)
@@ -495,82 +690,105 @@ def train_batch(device):
             torch.from_numpy(labels).to(device))
 
 
-def train(device, gpu):
-    """The flagship train step (bench.py: 416x416, batch 128, bf16, RAdam,
-    is_augment) through YOLOv3Trainer.train_step: a descent check without
-    augmentation, then the timed A/B of the two noise backends.  Returns
-    the launch counts of the run with the default backend."""
-    import torch
-
+def train_config(backbone, **kw):
     from yolov3_tensorflow_tpu_torch.config import Config
-    from yolov3_tensorflow_tpu_torch.train.trainer import (
-        AUTO_AUGMENT_BACKEND, YOLOv3Trainer)
+    return Config(input_image_size=FLAGSHIP_HW + (3,), batch_size=TRAIN_BATCH,
+                  max_boxes=32, optimizer="radam", compute_dtype="bfloat16",
+                  rectified_coord_num=-1, model_backbone=backbone, **kw)
 
-    base = dict(input_image_size=FLAGSHIP_HW + (3,), batch_size=TRAIN_BATCH,
-                max_boxes=32, optimizer="radam", compute_dtype="bfloat16",
-                rectified_coord_num=-1)
-    images, labels = train_batch(device)
 
-    trainer = YOLOv3Trainer(Config(is_augment=False, **base), device,
-                            seed=SEED)
+def free_card():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def descent(backbone, device, images, labels):
+    """DESCENT_STEPS train steps on one fixed batch without augmentation:
+    the total loss must fall."""
+    from yolov3_tensorflow_tpu_torch.train.trainer import YOLOv3Trainer
+    trainer = YOLOv3Trainer(train_config(backbone, is_augment=False),
+                            device, seed=SEED)
     state, losses = trainer.state, []
     for _ in range(DESCENT_STEPS):
         state, metrics = trainer.train_step(state, images, labels)
         losses.append(metrics["total_loss"])
     losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: total_loss did not fall over "
-                             f"{DESCENT_STEPS} steps on one batch: {losses}")
-    phase("train.descent", steps=DESCENT_STEPS, total_loss=losses,
-          batch=TRAIN_BATCH, augment=False)
+        raise AssertionError(f"train {backbone}: total_loss did not fall "
+                             f"over {DESCENT_STEPS} steps on one batch: "
+                             f"{losses}")
+    phase(f"train.{backbone}.descent", steps=DESCENT_STEPS,
+          total_loss=losses, batch=TRAIN_BATCH, augment=False)
     del trainer, state, metrics
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card()
 
-    runs = {}
-    for backend in ("fused", "xla"):
-        trainer = YOLOv3Trainer(
-            Config(is_augment=True, augment_backend=backend, **base), device,
-            seed=SEED)
-        state = trainer.state
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        for _ in range(WARMUP_STEPS):
-            state, metrics = trainer.train_step(state, images, labels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TIMED_STEPS):
-            state, metrics = trainer.train_step(state, images, labels)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = {k: f.launches for k, f in kernel_wrappers().items()}
-        final = {k: v.float().tolist() if torch.is_tensor(v) else v
-                 for k, v in metrics.items()}
-        if not np.isfinite(final["total_loss"]):
-            raise AssertionError(f"train {backend}: non-finite loss {final}")
-        steps = WARMUP_STEPS + TIMED_STEPS
-        runs[backend] = dict(
-            img_per_s=TRAIN_BATCH * TIMED_STEPS / dt,
-            step_ms=dt / TIMED_STEPS * 1e3,
-            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-            launches=launches,
-            launches_per_step={k: v / steps for k, v in launches.items()})
-        phase(f"train.{backend}", batch=TRAIN_BATCH, timed_steps=TIMED_STEPS,
-              final_total_loss=final["total_loss"], gpu=gpu,
-              **runs[backend])
-        del trainer, state, metrics
-        gc.collect()
-        torch.cuda.empty_cache()
 
-    expect = {"fused": ("bn_pool_relu_fwd", "bn_pool_relu_bwd",
-                        "noisy_normalize"),
-              "xla": ("bn_pool_relu_fwd", "bn_pool_relu_bwd")}
-    for backend, names in expect.items():
-        missing = [k for k in names if runs[backend]["launches"][k] == 0]
-        if missing:
-            raise AssertionError(f"train {backend}: kernels never launched "
-                                 f"on the main path: {missing}")
+def timed_steps(backbone, augment_backend, device, images, labels, gpu):
+    """WARMUP_STEPS + TIMED_STEPS augmented train steps with every launch
+    count set to 0 just before them; returns the run's numbers and its
+    launch counts."""
+    import torch
+
+    from yolov3_tensorflow_tpu_torch.train.trainer import YOLOv3Trainer
+    trainer = YOLOv3Trainer(
+        train_config(backbone, is_augment=True,
+                     augment_backend=augment_backend), device, seed=SEED)
+    state = trainer.state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for _ in range(WARMUP_STEPS):
+        state, metrics = trainer.train_step(state, images, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, metrics = trainer.train_step(state, images, labels)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kernel_wrappers().items()}
+    final = {k: v.float().tolist() if torch.is_tensor(v) else v
+             for k, v in metrics.items()}
+    if not np.isfinite(final["total_loss"]):
+        raise AssertionError(f"train {backbone} {augment_backend}: "
+                             f"non-finite loss {final}")
+    steps = WARMUP_STEPS + TIMED_STEPS
+    run = dict(img_per_s=TRAIN_BATCH * TIMED_STEPS / dt,
+               step_ms=dt / TIMED_STEPS * 1e3,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()})
+    phase(f"train.{backbone}.{augment_backend}", batch=TRAIN_BATCH,
+          timed_steps=TIMED_STEPS, final_total_loss=final["total_loss"],
+          gpu=gpu, **run)
+    del trainer, state, metrics
+    free_card()
+    return run
+
+
+def require_launches(what, launches, names):
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched on the main "
+                             f"path: {missing}")
+
+
+def train(device, gpu):
+    """The flagship train step (bench.py: 416x416, batch 128, bf16, RAdam,
+    is_augment) through YOLOv3Trainer.train_step: a descent check without
+    augmentation, then the timed A/B of the two noise backends.  Returns
+    the launch counts of the run with the default backend."""
+    from yolov3_tensorflow_tpu_torch.train.trainer import \
+        AUTO_AUGMENT_BACKEND
+
+    images, labels = train_batch(device)
+    descent(FLAGSHIP, device, images, labels)
+    runs = {b: timed_steps(FLAGSHIP, b, device, images, labels, gpu)
+            for b in ("fused", "xla")}
+    stem = ("bn_pool_relu_fwd", "bn_pool_relu_bwd")
+    require_launches("train fused", runs["fused"]["launches"],
+                     stem + ("noisy_normalize",))
+    require_launches("train xla", runs["xla"]["launches"], stem)
     if runs["xla"]["launches"]["noisy_normalize"]:
         raise AssertionError("train xla: the noise kernel ran")
     faster = max(runs, key=lambda b: runs[b]["img_per_s"])
@@ -580,47 +798,76 @@ def train(device, gpu):
     return runs[AUTO_AUGMENT_BACKEND]["launches"]
 
 
+def train_v2(device, gpu):
+    """The ResNet-18-v2 train step (bench.py --backbone resnet-18-v2):
+    the descent check, then the timed run with augment_backend "auto".
+    Returns its launch counts."""
+    images, labels = train_batch(device)
+    descent(V2, device, images, labels)
+    run = timed_steps(V2, "auto", device, images, labels, gpu)
+    require_launches("train v2", run["launches"],
+                     ("max_pool_s2_fwd", "max_pool_s2_bwd",
+                      "noisy_normalize"))
+    return run["launches"]
+
+
+def serve_model(backbone, device, gpu, kernels):
+    """The batch-64 eval forward against the plain stem, then 16 requests
+    through the DynamicBatcher.  Returns the serve run's launch counts."""
+    from yolov3_tensorflow_tpu_torch.config import Config
+    cfg = Config(input_image_size=FLAGSHIP_HW + (3,),
+                 batch_size=FLAGSHIP_BATCH, max_boxes=32,
+                 confidence_thresh=0.3, model_backbone=backbone)
+    sd = seeded_state_dict(cfg, device)
+    images = np.random.RandomState(SEED).randint(
+        0, 256, (FLAGSHIP_BATCH,) + FLAGSHIP_HW + (3,), dtype=np.uint8)
+    predictor = check_model(cfg, sd, images, device, gpu)
+    launches = serve(cfg, predictor, device, gpu, kernels)
+    del predictor, sd
+    free_card()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from yolov3_tensorflow_tpu_torch.config import Config
     from yolov3_tensorflow_tpu_torch.ops.cuda_build import kernel_library
 
+    t_start = time.perf_counter()
     device = torch.device("cuda:0")
     gpu = gpu_identity()
     print(gpu, flush=True)
     phase("device", gpu=gpu, torch=torch.__version__,
           cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    t0 = time.perf_counter()
-    kernel_library(verbose=True)
-    phase("build", seconds=time.perf_counter() - t0)
+    with timed("build"):
+        kernel_library(verbose=True)
 
-    records = check_stem_kernel(device)
-    records += check_train_stem_kernels(device)
-    records.append(check_noise_kernel(device))
+    with timed("kernels"):
+        records = check_stem_kernel(device)
+        records += check_train_stem_kernels(device)
+        records.append(check_noise_kernel(device))
+        records += check_pool_kernels(device)
     print("kernels: " + json.dumps([r["name"] for r in records]),
           flush=True)
 
-    cfg = Config(input_image_size=FLAGSHIP_HW + (3,),
-                 batch_size=FLAGSHIP_BATCH, max_boxes=32,
-                 confidence_thresh=0.3)
-    sd = seeded_state_dict(cfg, device)
-    images = np.random.RandomState(SEED).randint(
-        0, 256, (FLAGSHIP_BATCH,) + FLAGSHIP_HW + (3,), dtype=np.uint8)
-    predictor = check_model(cfg, sd, images, device, gpu)
-    launches = serve(cfg, predictor, device, gpu)
-    del predictor
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_launches = train(device, gpu)
-
+    paths = {}  # launch counts of each main-path run
+    with timed("serve.resnet-18"):
+        paths["serve.resnet-18"] = serve_model(FLAGSHIP, device, gpu,
+                                               ("bn_pool_relu_eval",))
+    with timed("train.resnet-18"):
+        paths["train.resnet-18"] = train(device, gpu)
+    with timed("serve.resnet-18-v2"):
+        paths["serve.resnet-18-v2"] = serve_model(V2, device, gpu,
+                                                  ("max_pool_s2_eval",))
+    with timed("train.resnet-18-v2"):
+        paths["train.resnet-18-v2"] = train_v2(device, gpu)
     for r in records:
-        path = launches if r["name"] == "bn_pool_relu_eval" \
-            else train_launches
-        r["launches"] = path[r["name"]]
+        r["launches"] = paths[KERNEL_PATHS[r["name"]]][r["name"]]
+    phase("seconds", phase="total",
+          seconds=time.perf_counter() - t_start, phases=PHASE_SECONDS)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

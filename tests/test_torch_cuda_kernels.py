@@ -7,7 +7,7 @@ without the suite's conftest:
 
 Tolerance: none.  Every kernel output (pooled values, codes, dy, the two
 per-channel sums, the noised batch) must be bitwise equal to its plain
-version's on the same inputs.
+version's on the same inputs, NaN included.
 """
 import numpy as np
 import pytest
@@ -18,11 +18,16 @@ from yolov3_tensorflow_tpu_torch.ops.augment_noise import (
 from yolov3_tensorflow_tpu_torch.ops.stem_pool import (
     bn_pool_relu, bn_pool_relu_bwd, bn_pool_relu_bwd_reference,
     bn_pool_relu_eval, bn_pool_relu_eval_reference, bn_pool_relu_fwd,
-    bn_pool_relu_reference)
+    bn_pool_relu_reference, max_pool_s2, max_pool_s2_bwd,
+    max_pool_s2_bwd_reference, max_pool_s2_eval, max_pool_s2_fwd,
+    max_pool_s2_reference)
 
 STEM_CASES = [((4, 8, 16, 8), "randn"), ((2, 4, 13, 11), "ties"),
               ((2, 8, 16, 16), "inv0"), ((2, 4, 8, 8), "negative"),
               ((2, 64, 208, 208), "randn")]
+POOL_CASES = [((4, 8, 16, 8), "randn"), ((2, 4, 13, 11), "ties"),
+              ((2, 4, 18, 10), "constant"), ((2, 4, 8, 8), "negative"),
+              ((2, 4, 16, 16), "nan"), ((2, 64, 208, 208), "randn")]
 
 
 def need_gpu():
@@ -45,6 +50,22 @@ def stem_case(n, c, h, w, kind, seed):
     return (torch.tensor(y, dtype=torch.bfloat16, device="cuda"),
             torch.tensor(inv, dtype=torch.float32, device="cuda"),
             torch.tensor(shift, dtype=torch.float32, device="cuda"))
+
+
+def pool_case(n, c, h, w, kind, seed):
+    """bf16 y (N, C, H, W) on the card for one pool-only case."""
+    rng = np.random.RandomState(seed)
+    y = rng.randn(n, c, h, w)
+    if kind == "ties":
+        y = ((np.arange(n * c * h * w) % 5) - 2).reshape(n, c, h, w) * 0.5
+    elif kind == "constant":
+        y = np.full((n, c, h, w), -0.75)
+    elif kind == "negative":
+        y = -np.abs(y) - 0.01
+    elif kind == "nan":
+        y[0, 0, 0, 0] = y[0, 1, 4, 5] = y[1, 2, 7, 6] = np.nan
+        y[1, 3, 9, 9] = y[1, 3, 10, 10] = np.nan
+    return torch.tensor(y, dtype=torch.bfloat16, device="cuda")
 
 
 def bits(t):
@@ -151,3 +172,54 @@ def test_noise_kernel_bit_equals_plain_version(kind, out_dtype):
     torch.cuda.synchronize()
     assert noisy_normalize.launches == before + 1
     assert_bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind", POOL_CASES)
+def test_pool_kernels_bit_equal_plain_versions(shape, kind):
+    need_gpu()
+    y = pool_case(*shape, kind, seed=6)
+    before = (max_pool_s2_eval.launches, max_pool_s2_fwd.launches,
+              max_pool_s2_bwd.launches)
+    p_eval = max_pool_s2_eval(y)
+    p, codes = max_pool_s2_fwd(y)
+    p_ref, codes_ref = max_pool_s2_reference(y)
+    assert_bitwise(p, p_ref)
+    assert_bitwise(p_eval, p_ref)
+    assert_bitwise(codes, codes_ref)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dp = torch.randn(p.shape, device="cuda", generator=g).to(torch.bfloat16)
+    dy = max_pool_s2_bwd(codes, dp, y.shape[2:])
+    assert_bitwise(dy, max_pool_s2_bwd_reference(codes, dp, y.shape[2:]))
+    torch.cuda.synchronize()
+    assert (max_pool_s2_eval.launches, max_pool_s2_fwd.launches,
+            max_pool_s2_bwd.launches) == tuple(b + 1 for b in before)
+    assert int(codes.max()) <= 8
+    if kind == "constant":
+        assert not codes.any()
+    if kind == "nan":
+        assert int(torch.isnan(p.float()).sum()) == 9
+
+
+@pytest.mark.gpu
+def test_pool_autograd_op_runs_the_kernels():
+    need_gpu()
+    y = pool_case(2, 8, 16, 16, "randn", seed=8).float().requires_grad_()
+    before = (max_pool_s2_fwd.launches, max_pool_s2_bwd.launches)
+    max_pool_s2(y).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (max_pool_s2_fwd.launches, max_pool_s2_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert y.grad.dtype == torch.float32
+    assert torch.isfinite(y.grad).all() and y.grad.abs().sum() > 0
+
+
+@pytest.mark.gpu
+def test_pool_kernel_rejects_bad_codes():
+    need_gpu()
+    dp = torch.zeros(1, 4, 4, 4, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="uint8"):
+        max_pool_s2_bwd(torch.zeros(1, 4, 4, 4, device="cuda"), dp, (8, 8))
+    with pytest.raises(ValueError, match="does not pool"):
+        max_pool_s2_bwd(torch.zeros(1, 4, 4, 4, dtype=torch.uint8,
+                                    device="cuda"), dp, (12, 8))

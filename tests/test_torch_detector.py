@@ -43,9 +43,10 @@ def cfg_pair(**kw):
     return JaxConfig(**kw), Config(**kw)
 
 
-def seeded_variables(seed=0):
-    """The JAX flagship's variable tree, every leaf drawn from numpy."""
-    jcfg, _ = cfg_pair()
+def seeded_variables(seed=0, **cfg_kw):
+    """The JAX model's variable tree (the flagship unless ``cfg_kw`` says
+    otherwise), every leaf drawn from numpy."""
+    jcfg, _ = cfg_pair(**cfg_kw)
     model = jax_build_detector(jcfg)
     shapes = jax.eval_shape(lambda: model.init(
         jax.random.PRNGKey(0), jnp.zeros((1,) + HW + (3,)), train=False))

@@ -109,3 +109,82 @@ def test_trainer_defaults_to_cuda():
     from yolov3_tensorflow_tpu_torch.train.trainer import YOLOv3Trainer
     with pytest.raises(RuntimeError, match="no CUDA device"):
         YOLOv3Trainer(tiny_cfg())
+
+
+# ------------------------------------------------- pool-only stem ----
+def test_v2_modules_are_among_the_checked_files():
+    files = port_files()
+    for rel in (("models", "resnet18_v2.py"), ("ops", "stem_pool.py"),
+                ("models", "layers.py")):
+        assert os.path.join(PORT, *rel) in files
+
+
+def pool_calls():
+    """Each pool-only wrapper, called on meta tensors of a (2, 4, 8, 8)
+    input."""
+    from yolov3_tensorflow_tpu_torch.ops import stem_pool as sp
+    y = torch.empty(2, 4, 8, 8, device="meta")
+    codes = torch.empty(2, 4, 4, 4, dtype=torch.uint8, device="meta")
+    dp = torch.empty(2, 4, 4, 4, device="meta")
+    return {"max_pool_s2_eval": lambda: sp.max_pool_s2_eval(y),
+            "max_pool_s2_fwd": lambda: sp.max_pool_s2_fwd(y),
+            "max_pool_s2_bwd": lambda: sp.max_pool_s2_bwd(codes, dp,
+                                                          (8, 8))}
+
+
+class _FailingLibrary:
+    """A kernel library whose every launcher returns a CUDA error."""
+
+    def __getattr__(self, name):
+        if name == "yolo_cuda_error_string":
+            return lambda err: b"unspecified launch failure"
+        return lambda *args: 719
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+@pytest.mark.parametrize("name", ["max_pool_s2_eval", "max_pool_s2_fwd",
+                                  "max_pool_s2_bwd"])
+def test_pool_wrappers_raise_rather_than_fall_back(monkeypatch, name,
+                                                   failure):
+    """On a device tensor a pool-only wrapper launches its kernel or
+    raises: a kernel library that fails to build or a launch that fails
+    propagates, no launch is counted and nothing runs the plain version.
+    Meta tensors stand in for CUDA ones here (the device check and the
+    stream lookup are patched)."""
+    from yolov3_tensorflow_tpu_torch.ops import stem_pool as sp
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran on a device tensor")
+
+    def failed_build():
+        raise RuntimeError("kernel build failed: nvcc error")
+
+    monkeypatch.setattr(sp, "_check_cuda_args", lambda *args: None)
+    monkeypatch.setattr(sp, "_stream", lambda t: 0)
+    monkeypatch.setattr(sp, "max_pool_s2_reference", no_plain)
+    monkeypatch.setattr(sp, "max_pool_s2_bwd_reference", no_plain)
+    monkeypatch.setattr(sp, "kernel_library",
+                        failed_build if failure == "build"
+                        else _FailingLibrary)
+    wrapper = getattr(sp, name)
+    before = wrapper.launches
+    match = "build failed" if failure == "build" else \
+        f"{name} failed to launch: unspecified launch failure"
+    with pytest.raises(RuntimeError, match=match):
+        pool_calls()[name]()
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("name", ["max_pool_s2_eval", "max_pool_s2_fwd",
+                                  "max_pool_s2_bwd"])
+def test_pool_wrappers_refuse_other_devices(name):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        pool_calls()[name]()
+
+
+@pytest.mark.parametrize("backbone", ["resnext-18", "mixnet-18",
+                                      "mobilenet-v2"])
+def test_unported_backbones_raise(backbone):
+    from yolov3_tensorflow_tpu_torch.models.detector import build_detector
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_detector(tiny_cfg(model_backbone=backbone), "cpu")

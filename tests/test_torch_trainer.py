@@ -1,16 +1,33 @@
 """The training slice as a whole: the port's ``YOLOv3Trainer`` against
 the JAX package's on the CPU, from the same weights (moved across by
-tools/import_flax), over 3 steps of the flagship (64x64, class_num=2,
-float32, batch 4, RAdam on the default schedule, augmentation off, the
-fused stem on both sides: the JAX Pallas kernels in interpret mode, the
-port's plain versions), with the rectified coord loss active for the
-first 2 steps so the image counters are compared too.
+tools/import_flax), over 3 steps (64x64, class_num=2, float32, batch 4,
+RAdam on the default schedule, augmentation off) of the flagship with the
+fused stem on both sides (the JAX Pallas kernels in interpret mode, the
+port's plain versions) and of ResNet-18-v2 with the plain stem on both
+sides, with the rectified coord loss active for the first 2 steps so the
+image counters are compared too.
 
 Tolerances: per-step total_loss and every breakdown term within rtol
 1e-4; parameters and BatchNorm running averages after 3 steps within
 atol 1e-5 + rtol 1e-4; the 3-step weight change of every conv within 1%
-of JAX's (relative L2); image_count exact.  The bf16 run is in
-tests/test_torch_trainer_bf16.py.
+of JAX's (relative L2), 2% for ResNet-18-v2; image_count exact.
+
+Why v2 runs the plain stem here: a kernel stem casts the conv output to
+bf16 even at float32, and where an input lands on a bf16 rounding
+boundary, a last-bit difference between XLA's and PyTorch's convolutions
+moves a pooled value by one bf16 step.  Over 3 steps that grows
+(measured on v2: 0.08, 0.91 and 5.2 times the parameter tolerance after
+steps 1, 2 and 3; the port against itself from weights perturbed by 1e-7
+relative: 1.4-7.9 times on v2 and 2.5-35 on the flagship).  The plain
+stem keeps float32 end to end (0.74 times after 3 steps).  The v2 kernel
+stem is held against JAX op by op (tests/test_torch_max_pool.py) and
+through this trainer at bf16 (tests/test_torch_trainer_bf16.py).  The
+wider v2 bound on the weight change: the heads' one-step weight changes
+agree within 8e-5 on both backbones, and the backward amplifies that
+loss-gradient difference on its way to the stem (one-step changes of the
+backbone convs differ by up to 0.57% on the flagship and 1.2% on v2,
+whose pre-activation blocks and tap BNs put more BatchNorms with
+16-element channels in the path).
 """
 import tempfile
 
@@ -29,6 +46,9 @@ from yolov3_tensorflow_tpu_torch.tools.import_flax import import_flax
 from yolov3_tensorflow_tpu_torch.train.trainer import YOLOv3Trainer
 
 N, STEPS = 4, 3
+# bound on the relative L2 gap of each conv's 3-step weight change
+# (by backbone class)
+DELTA_RTOL = {"ResNet18": 1e-2, "ResNet18V2": 2e-2}
 KEYS = ("rectified_coord_loss", "coord_loss_xy", "coord_loss_wh",
         "noobj_iou_loss", "obj_iou_loss", "class_loss", "kernel_reg",
         "gamma_reg", "total_loss")
@@ -78,9 +98,12 @@ def run_pair(**kw):
     return jm_all, pm_all, counts, js, ps, start
 
 
-@pytest.fixture(scope="module")
-def fp32_run():
-    return run_pair()
+@pytest.fixture(scope="module", params=[
+    dict(model_backbone="resnet-18"),
+    dict(model_backbone="resnet-18-v2", stem_backend="xla")],
+    ids=["resnet-18", "resnet-18-v2"])
+def fp32_run(request):
+    return run_pair(**request.param)
 
 
 def test_losses_follow_jax(fp32_run):
@@ -114,7 +137,8 @@ def test_parameters_and_batch_stats_follow_jax(fp32_run):
             d_jax = want[key] - start[key]
             norm = float(d_jax.norm())
             assert norm > 0, key
-            assert float((d_port - d_jax).norm()) <= 1e-2 * norm, key
+            assert float((d_port - d_jax).norm()) <= \
+                DELTA_RTOL[type(ps.model.backbone).__name__] * norm, key
             moved += 1
     assert moved == 31  # every conv of the detector
 

@@ -1,8 +1,8 @@
 """YOLOv3 detector of the PyTorch port: backbone + 3-scale heads.
 
 Port of ``yolov3_tensorflow_tpu/models/detector.py`` (reference:
-yolov3/yolov3_detector.py:15-151) for the resnet-18 backbone.  The heads
-are op for op the JAX model's:
+yolov3/yolov3_detector.py:15-151) for the resnet-18 and resnet-18-v2
+backbones.  The heads are op for op the JAX model's:
 
   * /32 head: conv_bn(512) -> relu -> 1x1 head conv
   * /16 head: 3x3 conv_bn(256) on the /32 feature -> 2x nearest upsample
@@ -24,13 +24,16 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..config import ALL_BACKBONES, BACKBONE_RESNET_18, Config
+from ..config import (ALL_BACKBONES, BACKBONE_RESNET_18,
+                      BACKBONE_RESNET_18_V2, Config)
 from ..device import resolve_device
 from .layers import BasicBackbone, Conv2dSame, upsample2x_nearest
 from .resnet18 import ResNet18
+from .resnet18_v2 import ResNet18V2
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 CONV_BACKENDS = ("xla", "winograd")
+BACKBONES = {BACKBONE_RESNET_18: ResNet18, BACKBONE_RESNET_18_V2: ResNet18V2}
 
 
 def check_conv_backend(conv_backend: str, training: bool) -> None:
@@ -57,15 +60,15 @@ class YOLOv3Detector(BasicBackbone):
         super().__init__(**kwargs)
         check_conv_backend(conv_backend, training=False)
         self.conv_backend = conv_backend
-        if backbone_name != BACKBONE_RESNET_18:
+        if backbone_name not in BACKBONES:
             if backbone_name in ALL_BACKBONES:
                 raise NotImplementedError(
                     f"backbone {backbone_name!r} is not ported yet "
                     "(ROADMAP Queue 1, other backbones)")
             raise ValueError(f"no such backbone: {backbone_name}")
-        self.backbone = ResNet18(dtype=self.dtype,
-                                 stem_backend=self.stem_backend,
-                                 generator=self.generator)
+        self.backbone = BACKBONES[backbone_name](
+            dtype=self.dtype, stem_backend=self.stem_backend,
+            generator=self.generator)
         c8, c16, c32 = head_channel_nums
         # creation order = the JAX model's call order (flax names)
         self.tower32 = self.conv_bn_pair(512, 512)
@@ -108,7 +111,7 @@ class YOLOv3Detector(BasicBackbone):
 def build_detector(cfg: Config, device="cuda",
                    generator: Optional[torch.Generator] = None
                    ) -> YOLOv3Detector:
-    """The flagship detector for ``cfg`` on ``device`` (CUDA unless the
+    """The detector of ``cfg.model_backbone`` on ``device`` (CUDA unless the
     caller asks for the CPU), in eval mode.  Weights are drawn on the
     CPU from ``generator`` (seed 0 when None), then moved."""
     device = resolve_device(device)

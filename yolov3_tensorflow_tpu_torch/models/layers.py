@@ -16,7 +16,8 @@ Port of ``yolov3_tensorflow_tpu/models/layers.py`` (the reference's
     ``shift = bias - mean * inv`` in float32, applied as
     ``x * inv + shift`` in the compute dtype.
   * residual merge with the 1x1 NIN + BN projection, relu, 2x nearest
-    upsample, and the fused stem ``conv -> BN + 3x3/s2 max-pool + relu``.
+    upsample, the fused stem ``conv -> BN + 3x3/s2 max-pool + relu`` and
+    the pool-only stem ``conv -> 3x3/s2 max-pool`` (ResNet-18-v2).
   * :func:`l2_regularization`: the explicit L2 terms Keras keeps in
     ``model.losses``.
 
@@ -34,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.stem_pool import (bn_pool_relu, bn_pool_relu_eval,
-                              bn_pool_relu_eval_reference, same_pool_geometry)
+                              bn_pool_relu_eval_reference, max_pool_s2,
+                              max_pool_s2_eval, same_pool_geometry)
 
 L2_CONV_DECAY = 5.0e-4  # conv kernel weight decay (basic_backbone.py:11)
 BN_L2_GAMMA_DECAY = 1.0e-5  # BN gamma weight decay (basic_backbone.py:12)
@@ -167,8 +169,9 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 class BasicBackbone(nn.Module):
     """Base module giving the backbones and the detector the shared op
-    vocabulary.  :meth:`conv_bn_pair` creates and registers sub-modules
-    under flax's auto-names; the remaining methods apply them."""
+    vocabulary.  :meth:`new_conv`, :meth:`new_batch_norm` and
+    :meth:`conv_bn_pair` create and register sub-modules under flax's
+    auto-names; the remaining methods apply them."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  stem_backend: str = "auto",
@@ -189,16 +192,25 @@ class BasicBackbone(nn.Module):
         return module
 
     # ---------------------------------------------------------- create --
-    def conv_bn_pair(self, cin: int, cout: int, kernel_size: int = 3,
-                     stride: int = 1, padding: str = "SAME"):
+    def new_conv(self, cin: int, cout: int, kernel_size: int = 3,
+                 stride: int = 1, padding: str = "SAME") -> Conv2dSame:
         """A conv (he_normal, no bias, default 3x3/1 SAME,
-        basic_backbone.py:20-43) and the BatchNorm after it (momentum .9,
-        eps 1e-5, basic_backbone.py:68-78), created in flax's order."""
-        conv = self._register("Conv", Conv2dSame(
+        basic_backbone.py:20-43), registered as the next ``Conv_k``."""
+        return self._register("Conv", Conv2dSame(
             cin, cout, kernel_size, stride, padding, dtype=self.dtype,
             generator=self.generator))
-        return conv, self._register(
-            "FusedBatchNorm", FusedBatchNorm(cout, dtype=self.dtype))
+
+    def new_batch_norm(self, features: int) -> FusedBatchNorm:
+        """A BatchNorm (momentum .9, eps 1e-5, basic_backbone.py:68-78),
+        registered as the next ``FusedBatchNorm_k``."""
+        return self._register("FusedBatchNorm",
+                              FusedBatchNorm(features, dtype=self.dtype))
+
+    def conv_bn_pair(self, cin: int, cout: int, kernel_size: int = 3,
+                     stride: int = 1, padding: str = "SAME"):
+        """A conv and the BatchNorm after it, created in flax's order."""
+        conv = self.new_conv(cin, cout, kernel_size, stride, padding)
+        return conv, self.new_batch_norm(cout)
 
     # ----------------------------------------------------------- apply --
     @staticmethod
@@ -212,6 +224,10 @@ class BasicBackbone(nn.Module):
 
     def conv_bn_relu(self, x, pair):
         return self.activation(self.conv_bn(x, pair))
+
+    def bn_activation(self, x, bn):
+        """BatchNorm then relu (basic_backbone.py:152-163)."""
+        return self.activation(bn(x))
 
     def element_wise_add(self, identity, residual, nin=None):
         """Residual merge with the optional 1x1 NIN conv + BN on the
@@ -240,6 +256,20 @@ class BasicBackbone(nn.Module):
         if self.stem_backend == "xla":
             return self.activation(max_pool_same(bn(y)))
         return bn_pool_relu(y, *bn.batch_scalars(y))
+
+    def stem_conv_pool(self, x, conv):
+        """The ResNet-18-v2 stem chain conv -> max_pool(3x3/2), with no BN
+        or relu (resnet18_v2.py:61-62; JAX layers.py:628-638).
+        ``stem_backend`` "auto"/"fused" run the pool-only op on the conv
+        output cast to bf16: :func:`max_pool_s2_eval` in eval,
+        :func:`max_pool_s2` (codes forward, code-routed backward) in train;
+        the kernels on a CUDA tensor, their plain versions on a CPU one.
+        "xla" runs :func:`max_pool_same` in the compute dtype (the JAX
+        classic path)."""
+        y = conv(x)
+        if self.stem_backend == "xla":
+            return max_pool_same(y)
+        return max_pool_s2(y) if self.training else max_pool_s2_eval(y)
 
 
 def max_pool_same(x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,21 @@
-// Fused stem for Hopper: p = relu(maxpool3x3/s2_SAME(bn(y))), NCHW, in
-// eval form, in train form with argmax codes, and the code-routed
-// backward.
+// Stem pooling for Hopper, NCHW: the fused BN + 3x3/s2 max-pool + relu
+// of the ResNet-18 stem, p = relu(maxpool3x3/s2_SAME(bn(y))), and the
+// pool-only stem of ResNet-18-v2, p = maxpool3x3/s2_SAME(y), each in eval
+// form, in train form with argmax codes, and the code-routed backward.
 //
 // Replaces the TPU kernels of yolov3_tensorflow_tpu/ops/stem_pool.py:
 //   * bn_pool_relu_eval (-> _fwd_local, _fwd_kernel with EMIT=False);
 //   * bn_pool_relu forward (_vjp_fwd -> _fwd_local, _fwd_kernel with
 //     EMIT=True), which also writes the winning tap per window;
 //   * bn_pool_relu backward (_vjp_bwd -> _bwd_local, _bwd_kernel with
-//     _load_pooled and _route_row).
+//     _load_pooled and _route_row);
+//   * max_pool_s2_eval and the max_pool_s2 forward (_pool_fwd_local,
+//     _pool_fwd_kernel with EMIT=False / True);
+//   * the max_pool_s2 backward (_pool_vjp_bwd -> _pool_bwd_local,
+//     _pool_bwd_kernel).
+// The pool-only kernels are the fused ones with the BN prologue, the relu
+// epilogue and the BN sums compiled out (template flags), so both stems
+// share one geometry, one tie rule and one routing order.
 //
 // What bounds them on an H100: bytes.  Each does a handful of operations
 // per element it reads once from device memory (~0.1-1 operation per
@@ -26,27 +34,37 @@
 //     pays nothing for the codes.
 //   * backward dy: a gather, one thread per input element, which sums
 //     the at most four windows whose code names it.  No atomics.
-//   * backward sums: per-block partials in shared memory with a fixed
-//     halving tree, then one block per channel in a fixed order.  No
-//     float atomics, so two runs give the same bits, and the plain
-//     PyTorch version (stem_pool.py) repeats the same additions.
+//   * backward sums (fused stem only): per-block partials in shared
+//     memory with a fixed halving tree, then one block per channel in a
+//     fixed order.  No float atomics, so two runs give the same bits, and
+//     the plain PyTorch version (stem_pool.py) repeats the same additions.
 //
-// Semantics, bit for bit as the TPU kernel (stem_pool.py:81-142,
-// :202-288) and the classic apply (models/layers.py FusedBatchNorm):
-//   * inv_b = bf16(inv), shift_b = bf16(shift) per channel;
-//   * t = bf16_rn(y * inv_b), then bf16_rn(t + shift_b): two roundings,
+// Semantics, bit for bit as the TPU kernels (stem_pool.py:81-199,
+// :202-288, :422-436) and the classic apply (models/layers.py
+// FusedBatchNorm):
+//   * fused stem: inv_b = bf16(inv), shift_b = bf16(shift) per channel;
+//     t = bf16_rn(y * inv_b), then bf16_rn(t + shift_b): two roundings,
 //     each op in f32 with __fmul_rn / __fadd_rn so nvcc cannot contract
 //     them into an FMA (the f32 product of two bf16 values is exact; the
 //     f32 sum then bf16 round is what XLA and PyTorch do for a bf16 add);
+//     pool-only stem: the bf16 input itself;
 //   * TF SAME windows for k=3, s=2: Ho = ceil(H/2),
 //     pad_top = max((Ho-1)*2+3-H, 0) / 2 (0 for even H); taps outside the
-//     image are skipped, which equals zero padding because relu follows;
-//   * max in f32 (NaN propagates, as in torch max_pool2d), relu, bf16 out;
-//   * code = the first tap (row-major) strictly above all before it, or 9
-//     when the window's max is not > 0 (relu clamps it: no gradient);
+//     image are skipped, which is -inf padding (the TPU's pool-only kernel
+//     pads with -3e38, the fused one with 0, which relu makes the same);
+//   * max in f32 with NaN propagating (as jnp.maximum and torch
+//     max_pool2d: once the running max is NaN it stays NaN), then relu
+//     for the fused stem; bf16 out through __float2bfloat16_rn, which
+//     writes a NaN as 0x7fff, as PyTorch's own CUDA conversion does (its
+//     CPU conversion writes 0x7fc0);
+//   * code = the first tap (row-major) strictly above all before it (a
+//     NaN tap is never above, so the code stops at the tap before it);
+//     the fused stem writes 9 when the window's max is not > 0 (relu
+//     clamps it: no gradient), the pool-only stem never does;
 //   * dy: the routed dp terms added in the TPU kernel's order (window row
 //     r-1 tap row 2 before window row r tap row 0; within a row tap 0 of
-//     window t, then tap 2 of window t-1), times f32 inv, one bf16 round.
+//     window t, then tap 2 of window t-1) into a zero f32 sum, times f32
+//     inv for the fused stem, one bf16 round.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,8 +78,10 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <bool EMIT>
-__global__ void bn_pool_relu_fwd_kernel(
+// BN_RELU: the fused stem (BN prologue, relu epilogue, code 9 where relu
+// clamps); otherwise the pool-only stem (inv and shift unused).
+template <bool EMIT, bool BN_RELU>
+__global__ void pool3x3s2_fwd_kernel(
     const __nv_bfloat16* __restrict__ y, const float* __restrict__ inv,
     const float* __restrict__ shift, __nv_bfloat16* __restrict__ out,
     uint8_t* __restrict__ codes, int NC, int C, int H, int W, int Ho, int Wo,
@@ -73,9 +93,11 @@ __global__ void bn_pool_relu_fwd_kernel(
   const int h0 = ho * 2 - pad_top;
   const int w0 = wo * 2 - pad_left;
   for (int nc = blockIdx.y; nc < NC; nc += gridDim.y) {
-    const int c = nc % C;
-    const float inv_b = bf16_round(inv[c]);
-    const float shift_b = bf16_round(shift[c]);
+    float inv_b = 0.0f, shift_b = 0.0f;
+    if (BN_RELU) {
+      inv_b = bf16_round(inv[nc % C]);
+      shift_b = bf16_round(shift[nc % C]);
+    }
     const __nv_bfloat16* plane = y + (int64_t)nc * H * W;
     float m = -__int_as_float(0x7f800000);  // -inf
     int code = 0;
@@ -88,23 +110,27 @@ __global__ void bn_pool_relu_fwd_kernel(
       for (int b = 0; b < 3; ++b) {
         const int w = w0 + b;
         if (w < 0 || w >= W) continue;
-        const float t =
-            bf16_round(__fmul_rn(__bfloat162float(row[w]), inv_b));
-        const float v = bf16_round(__fadd_rn(t, shift_b));
+        float v = __bfloat162float(row[w]);
+        if (BN_RELU) {
+          const float t = bf16_round(__fmul_rn(v, inv_b));
+          v = bf16_round(__fadd_rn(t, shift_b));
+        }
         if (EMIT && v > m) code = a * 3 + b;  // strict >: first tap wins
         m = (v > m || v != v) ? v : m;
       }
     }
     const int64_t o = (int64_t)nc * Ho * Wo + k;
-    const float p = (m > 0.0f || m != m) ? m : 0.0f;
+    const float p = (!BN_RELU || m > 0.0f || m != m) ? m : 0.0f;
     out[o] = __float2bfloat16_rn(p);
-    if (EMIT) codes[o] = (uint8_t)(m > 0.0f ? code : kInactive);
+    if (EMIT) codes[o] = (uint8_t)(!BN_RELU || m > 0.0f ? code : kInactive);
   }
 }
 
-// dy[n,c,i,j] = bf16(inv[c] * sum of dp over the windows whose code names
-// (i, j)), terms in the TPU kernel's order (_route_row, stem_pool.py:221).
-__global__ void bn_pool_relu_bwd_dy_kernel(
+// dy[n,c,i,j] = bf16(sum of dp over the windows whose code names (i, j)),
+// terms in the TPU kernel's order (_route_row, stem_pool.py:221), times
+// inv[c] before the round when SCALE (the fused stem).
+template <bool SCALE>
+__global__ void pool3x3s2_bwd_dy_kernel(
     const uint8_t* __restrict__ codes, const __nv_bfloat16* __restrict__ dp,
     const float* __restrict__ inv, __nv_bfloat16* __restrict__ dy, int NC,
     int C, int H, int W, int Ho, int Wo, int pad_top, int pad_left) {
@@ -147,8 +173,8 @@ __global__ void bn_pool_relu_bwd_dy_kernel(
           acc = __fadd_rn(acc, __bfloat162float(dp[q]));
       }
     }
-    dy[(int64_t)nc * H * W + k] =
-        __float2bfloat16_rn(__fmul_rn(acc, inv[nc % C]));
+    if (SCALE) acc = __fmul_rn(acc, inv[nc % C]);
+    dy[(int64_t)nc * H * W + k] = __float2bfloat16_rn(acc);
   }
 }
 
@@ -254,7 +280,7 @@ int yolo_bn_pool_relu_eval(const void* y, const void* inv, const void* shift,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((int64_t)N * C * Ho * Wo == 0) return 0;
-  bn_pool_relu_fwd_kernel<false>
+  pool3x3s2_fwd_kernel<false, true>
       <<<plane_grid(Ho * Wo, N * C, device), kThreads, 0,
          (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)y, (const float*)inv, (const float*)shift,
@@ -272,7 +298,7 @@ int yolo_bn_pool_relu_fwd(const void* y, const void* inv, const void* shift,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if ((int64_t)N * C * Ho * Wo == 0) return 0;
-  bn_pool_relu_fwd_kernel<true>
+  pool3x3s2_fwd_kernel<true, true>
       <<<plane_grid(Ho * Wo, N * C, device), kThreads, 0,
          (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)y, (const float*)inv, (const float*)shift,
@@ -294,7 +320,7 @@ int yolo_bn_pool_relu_bwd(const void* codes, const void* dp, const void* p,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if ((int64_t)N * C * H * W == 0) return 0;
-  bn_pool_relu_bwd_dy_kernel
+  pool3x3s2_bwd_dy_kernel<true>
       <<<plane_grid(H * W, N * C, device), kThreads, 0, s>>>(
       (const uint8_t*)codes, (const __nv_bfloat16*)dp, (const float*)inv,
       (__nv_bfloat16*)dy, N * C, C, H, W, Ho, Wo, pad_top, pad_left);
@@ -311,6 +337,55 @@ int yolo_bn_pool_relu_bwd(const void* codes, const void* dp, const void* p,
   if (err != cudaSuccess) return (int)err;
   bn_pool_relu_bwd_final_kernel<<<C, kThreads, 0, s>>>(
       (const float*)partial, (float*)sums, N, C, chunks);
+  return (int)cudaGetLastError();
+}
+
+// y [N, C, H, W] bf16 contiguous -> out [N, C, Ho, Wo] bf16 contiguous,
+// the pool-only stem's max.  Launches on `stream` of device `device` and
+// returns the cudaError_t of the launch.  Allocates nothing.
+int yolo_max_pool_s2_eval(const void* y, void* out, int N, int C, int H,
+                          int W, int Ho, int Wo, int pad_top, int pad_left,
+                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((int64_t)N * C * Ho * Wo == 0) return 0;
+  pool3x3s2_fwd_kernel<false, false>
+      <<<plane_grid(Ho * Wo, N * C, device), kThreads, 0,
+         (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)y, nullptr, nullptr, (__nv_bfloat16*)out,
+      nullptr, N * C, C, H, W, Ho, Wo, pad_top, pad_left);
+  return (int)cudaGetLastError();
+}
+
+// As yolo_max_pool_s2_eval, plus codes [N, C, Ho, Wo] uint8: the winning
+// tap 0-8 of each window.
+int yolo_max_pool_s2_fwd(const void* y, void* out, void* codes, int N, int C,
+                         int H, int W, int Ho, int Wo, int pad_top,
+                         int pad_left, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((int64_t)N * C * Ho * Wo == 0) return 0;
+  pool3x3s2_fwd_kernel<true, false>
+      <<<plane_grid(Ho * Wo, N * C, device), kThreads, 0,
+         (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)y, nullptr, nullptr, (__nv_bfloat16*)out,
+      (uint8_t*)codes, N * C, C, H, W, Ho, Wo, pad_top, pad_left);
+  return (int)cudaGetLastError();
+}
+
+// codes [N, C, Ho, Wo] uint8 and dp [N, C, Ho, Wo] bf16 -> dy [N, C, H, W]
+// bf16, dp routed to the winning taps.  One launch on `stream`.
+int yolo_max_pool_s2_bwd(const void* codes, const void* dp, void* dy, int N,
+                         int C, int H, int W, int Ho, int Wo, int pad_top,
+                         int pad_left, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if ((int64_t)N * C * H * W == 0) return 0;
+  pool3x3s2_bwd_dy_kernel<false>
+      <<<plane_grid(H * W, N * C, device), kThreads, 0,
+         (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (const __nv_bfloat16*)dp, nullptr,
+      (__nv_bfloat16*)dy, N * C, C, H, W, Ho, Wo, pad_top, pad_left);
   return (int)cudaGetLastError();
 }
 

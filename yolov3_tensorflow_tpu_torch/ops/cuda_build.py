@@ -34,6 +34,9 @@ _SIGNATURES = {
     "yolo_bn_pool_relu_eval": [_P] * 4 + [_I] * 9 + [_P],
     "yolo_bn_pool_relu_fwd": [_P] * 5 + [_I] * 9 + [_P],
     "yolo_bn_pool_relu_bwd": [_P] * 8 + [_I] * 9 + [_P],
+    "yolo_max_pool_s2_eval": [_P] * 2 + [_I] * 9 + [_P],
+    "yolo_max_pool_s2_fwd": [_P] * 3 + [_I] * 9 + [_P],
+    "yolo_max_pool_s2_bwd": [_P] * 3 + [_I] * 9 + [_P],
     "yolo_noisy_normalize": [_P] * 5 + [_I] * 4 + [_P],
 }
 

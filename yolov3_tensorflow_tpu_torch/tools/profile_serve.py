@@ -1,10 +1,12 @@
 """Where the serving path's time goes, on one NVIDIA GPU.
 
-    python -m yolov3_tensorflow_tpu_torch.tools.profile_serve [--batches 8 64]
+    python -m yolov3_tensorflow_tpu_torch.tools.profile_serve \\
+        [--backbone resnet-18] [--batches 8 64]
 
 For each batch size, runs ``DetectionEngine`` (Predictor forward + NMS +
-host conversion) on the flagship ResNet-18 YOLOv3 at 416x416 with seeded
-random weights and prints one JSON line per batch:
+host conversion) on a YOLOv3 at 416x416 (the flagship ResNet-18 unless
+``--backbone`` names another ported one) with seeded random weights and
+prints one JSON line per batch:
 
   * ``stage_ms``: median host-clock time of each stage, each ending in
     ``torch.cuda.synchronize()`` (forward, NMS, host conversion);
@@ -29,7 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..config import Config
 from ..infer.predict import Predictor
 from ..infer.server import DetectionEngine
-from ..models.detector import build_detector
+from ..models.detector import BACKBONES, build_detector
 
 
 def _median_ms(fn, reps):
@@ -76,10 +78,13 @@ def profile_batch(engine, predictor, images, reps=10):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backbone", default="resnet-18",
+                    choices=sorted(BACKBONES))
     ap.add_argument("--batches", type=int, nargs="+", default=[8, 64])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    cfg = Config(input_image_size=(416, 416, 3), confidence_thresh=0.3)
+    cfg = Config(input_image_size=(416, 416, 3), confidence_thresh=0.3,
+                 model_backbone=args.backbone)
     gen = torch.Generator().manual_seed(args.seed)
     sd = build_detector(cfg, "cpu", generator=gen).state_dict()
     predictor = Predictor(cfg, sd, "cuda")
@@ -92,8 +97,9 @@ def main(argv=None):
     for b in args.batches:
         images = rng.randint(0, 256, (b, 416, 416, 3), dtype=np.uint8)
         with torch.inference_mode():
-            print(json.dumps({"gpu": gpu, **profile_batch(
-                engine, predictor, images)}), flush=True)
+            row = profile_batch(engine, predictor, images)
+        print(json.dumps({"gpu": gpu, "backbone": args.backbone, **row}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """Where the train step's time goes, on one NVIDIA GPU.
 
     python -m yolov3_tensorflow_tpu_torch.tools.profile_train \\
-        [--batch 128] [--backends fused xla] [--host-batch]
+        [--backbone resnet-18] [--batch 128] [--backends fused xla] \\
+        [--host-batch]
 
-Builds ``YOLOv3Trainer`` for the flagship ResNet-18 YOLOv3 at 416x416
-(bf16, RAdam, augmentation on, seeded random weights, bench.py's labels)
-and, for each noise backend, prints one JSON line:
+Builds ``YOLOv3Trainer`` for a YOLOv3 at 416x416 (the flagship ResNet-18
+unless ``--backbone`` names another ported one, e.g. resnet-18-v2; bf16,
+RAdam, augmentation on, seeded random weights, bench.py's labels) and,
+for each noise backend, prints one JSON line:
 
   * ``step_ms`` / ``img_per_s``: median host-clock time of a train step
     ending in ``torch.cuda.synchronize()``, over ``--steps`` steps;
@@ -41,12 +43,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..config import Config
+from ..models.detector import BACKBONES
 from ..train.trainer import YOLOv3Trainer
 
 RANGES = ("train.inputs", "train.forward", "train.loss", "train.optimizer")
 # kernel-name markers of each category, checked in this order
 CATEGORIES = (
-    ("port kernels", ("bn_pool_relu", "noisy_normalize")),
+    ("port kernels", ("pool3x3s2", "bn_pool_relu", "noisy_normalize")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions", ("conv", "xmma", "gemm", "cutlass", "sm90_", "cudnn")),
     ("element-wise and reductions", ("elementwise", "reduce_kernel",
@@ -75,7 +78,7 @@ def profile_backend(backend, args):
     cfg = Config(input_image_size=(416, 416, 3), batch_size=args.batch,
                  max_boxes=32, optimizer="radam", compute_dtype="bfloat16",
                  is_augment=True, augment_backend=backend,
-                 rectified_coord_num=-1)
+                 rectified_coord_num=-1, model_backbone=args.backbone)
     trainer = YOLOv3Trainer(cfg, "cuda", seed=args.seed)
     images, labels = _batch(args.batch, args.seed)
     if not args.host_batch:
@@ -120,7 +123,7 @@ def profile_backend(backend, args):
             + e.self_device_time_total / 1e3 * per_step
     step_ms = float(np.median(times))
     return {
-        "backend": backend, "batch": args.batch,
+        "backbone": args.backbone, "backend": backend, "batch": args.batch,
         "host_batch": args.host_batch, "step_ms": step_ms,
         "img_per_s": args.batch / step_ms * 1e3,
         "profiled_steps": args.profiled,
@@ -142,6 +145,8 @@ def profile_backend(backend, args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backbone", default="resnet-18",
+                    choices=sorted(BACKBONES))
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--backends", nargs="+", default=["fused", "xla"],
                     choices=["fused", "xla"])

@@ -3,12 +3,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each kernel against its plain PyTorch version on the card (tolerance:
-bitwise equality) at the main paths' shapes and at edge cases, and times
-it beside its bound and the closest PyTorch library call.  Then it drives
-the two paths of two models at 416x416 (seeded random weights): the
-flagship ResNet-18 YOLOv3, whose stem runs the fused BN + pool + relu
-kernels, and ResNet-18-v2 YOLOv3, whose stem runs the pool-only kernels:
+each kernel against its plain PyTorch version on the card at the main
+paths' shapes and at edge cases, and times it beside its bound and the
+closest PyTorch library call.  Tolerance: bitwise equality for the stem
+and noise kernels; the Winograd kernel, whose tensor-core sums run in
+another order than the plain version's float32 product, within one bf16
+step per output (|k - p| <= 2^-7 |p| + 1e-4 max|p|), its per-channel sums
+within 1e-5 of their terms' summed magnitudes, its aux output bitwise,
+and at least WINOGRAD_BITWISE_SHARE of its outputs bitwise.
+Then it drives the two paths of two models at 416x416 (seeded random
+weights): the flagship ResNet-18 YOLOv3, whose stem runs the fused BN +
+pool + relu kernels, and ResNet-18-v2 YOLOv3, whose stem runs the
+pool-only kernels:
 
   * serving: the batch-64 eval forward, held against the plain stem
     (``stem_backend="xla"``), and 16 requests through ``Predictor``,
@@ -17,7 +23,12 @@ kernels, and ResNet-18-v2 YOLOv3, whose stem runs the pool-only kernels:
     RAdam: 6 steps on one fixed batch without augmentation, whose loss
     must fall, then 3 warm-up and 20 timed steps with augmentation: for
     the flagship with each noise backend (``augment_backend`` "fused" and
-    "xla"), for v2 with "auto".
+    "xla"), for v2 with "auto";
+  * the flagship's train step at ``conv_backend="winograd"``
+    (``train.resnet-18.winograd``): module 2's second block on the fused
+    Winograd chain, two forward and two gradient launches of the Winograd
+    kernel per step; the descent check, then 3 warm-up and 20 timed steps
+    with augment_backend "auto".
 
 Each path runs with every kernel's launch count set to 0 just before it
 and fails if one of its kernels was not launched.  Each phase prints one
@@ -42,6 +53,7 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet) for the roofline bound
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 
 FLAGSHIP = "resnet-18"
 V2 = "resnet-18-v2"
@@ -59,7 +71,20 @@ KERNEL_PATHS = {"bn_pool_relu_eval": "serve.resnet-18",
                 "noisy_normalize": "train.resnet-18",
                 "max_pool_s2_eval": "serve.resnet-18-v2",
                 "max_pool_s2_fwd": "train.resnet-18-v2",
-                "max_pool_s2_bwd": "train.resnet-18-v2"}
+                "max_pool_s2_bwd": "train.resnet-18-v2",
+                "winograd_call.conv_stats": "train.resnet-18.winograd",
+                "winograd_call.bn_act_conv_stats": "train.resnet-18.winograd",
+                "winograd_call.dyeff_conv": "train.resnet-18.winograd",
+                "winograd_call.dyeff_conv_bn_act":
+                    "train.resnet-18.winograd"}
+# the Winograd chain's shape on the flagship train path: module 2 at
+# 416x416, batch 128, 128 -> 128 channels
+WINOGRAD_SHAPE = (TRAIN_BATCH, 128, 128, FLAGSHIP_HW[0] // 8,
+                  FLAGSHIP_HW[1] // 8)
+# least share of the Winograd kernel's bf16 outputs bit-equal to the plain
+# version's (measured on an H100: 99.985% at the chain's shape, 100% at
+# the small edge cases)
+WINOGRAD_BITWISE_SHARE = 0.999
 # operations the noise kernel does, counted from csrc/augment_noise.cu:
 # per element (convert, scale, select, round), extra per element of a
 # gaussian image (three hash rounds with the seed adds, the uniform, the
@@ -109,11 +134,14 @@ def gpu_identity() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, ops: float):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 peak."""
+def bound(nbytes: float, ops: float, tensor_ops: float = 0.0):
+    """(bound_ms, bound_by): the largest of bytes over the memory rate,
+    float32 operations over the float32 peak and bf16 tensor-core
+    operations over the tensor-core peak.  The three units work at the
+    same time, so none of the times adds to another."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = max(ops / F32_OPS_PER_S,
+                tensor_ops / BF16_TENSOR_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -144,18 +172,27 @@ def reset_launches():
         fn.launches = 0
 
 
+def launch_counts():
+    """Launches of each kernel since the last reset."""
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
 def kernel_wrappers():
+    """Each kernel's wrapper by record name; the Winograd kernel's one
+    launcher per mode, as ``winograd_call.<mode>``."""
     from yolov3_tensorflow_tpu_torch.ops.augment_noise import noisy_normalize
     from yolov3_tensorflow_tpu_torch.ops.stem_pool import (
         bn_pool_relu_bwd, bn_pool_relu_eval, bn_pool_relu_fwd,
         max_pool_s2_bwd, max_pool_s2_eval, max_pool_s2_fwd)
+    from yolov3_tensorflow_tpu_torch.ops.winograd import KERNELS
     return {"bn_pool_relu_eval": bn_pool_relu_eval,
             "bn_pool_relu_fwd": bn_pool_relu_fwd,
             "bn_pool_relu_bwd": bn_pool_relu_bwd,
             "noisy_normalize": noisy_normalize,
             "max_pool_s2_eval": max_pool_s2_eval,
             "max_pool_s2_fwd": max_pool_s2_fwd,
-            "max_pool_s2_bwd": max_pool_s2_bwd}
+            "max_pool_s2_bwd": max_pool_s2_bwd,
+            **{f"winograd_call.{mode}": fn for mode, fn in KERNELS.items()}}
 
 
 # ------------------------------------------------------------ kernels --
@@ -521,6 +558,196 @@ def check_pool_kernels(device):
     return records
 
 
+def winograd_inputs(n, c, co, h, w, device, seed):
+    """The Winograd kernel's operands of one case, on the card: bf16 x, y
+    (the PRO_DYEFF partner), cvals and OIHW weights; float32 (inv, shift)
+    over C and over Co, and (ds, dq) over C."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def draw(*shape, scale=1.0, dtype=torch.bfloat16):
+        t = torch.randn(*shape, generator=g) * scale
+        return t.to(device=device, dtype=dtype)
+
+    def inv_shift(k):
+        return torch.stack([torch.rand(k, generator=g) + 0.5,
+                            torch.randn(k, generator=g) * 0.2]).to(device)
+
+    return dict(x=draw(n, c, h, w), y=draw(n, c, h, w),
+                cvals=draw(n, co, h, w),
+                w=draw(co, c, 3, 3, scale=(2.0 / (9 * c)) ** 0.5),
+                scal_c=inv_shift(c), scal_co=inv_shift(co),
+                scal2=torch.stack([torch.randn(c, generator=g) * 1e-3,
+                                   torch.randn(c, generator=g) * 1e-4]).to(
+                                       device))
+
+
+def winograd_kwargs(mode, a):
+    """winograd_call's keyword arguments for ``mode`` on case ``a``."""
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+    pro, epi = mode
+    kw = dict(pro=pro, epi=epi, aux=pro != wg.PRO_NONE)
+    if pro == wg.PRO_BN_ACT:
+        kw["scal"] = a["scal_c"]
+    if pro == wg.PRO_DYEFF:
+        kw.update(partner=a["y"], scal2=a["scal2"])
+    if epi == wg.EPI_BN_ACT:
+        kw.update(cvals=a["cvals"], scal=a["scal_co"])
+    return kw
+
+
+def check_winograd_close(what, got, want, mode, kw):
+    """The kernel's outputs against the plain version's (tolerances in
+    the module docstring); returns (the output's max abs error, its share
+    of bit-equal outputs)."""
+    import torch
+
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+    out, ref = got[0].float(), want[0].float()
+    if got[0].shape != want[0].shape or got[0].dtype != torch.bfloat16:
+        raise AssertionError(f"{what}: out {tuple(got[0].shape)} "
+                             f"{got[0].dtype}")
+    err = (out - ref).abs()
+    if not (err <= 2 ** -7 * ref.abs() + 1e-4 * ref.abs().max()).all():
+        raise AssertionError(f"{what}: out more than one bf16 step from the "
+                             f"plain version (max abs err {err.max()})")
+    # the sums' order moves a few outputs by one step; a lost bf16
+    # rounding in the transforms moves about half of them
+    share = float((got[0] == want[0]).float().mean())
+    if share < WINOGRAD_BITWISE_SHARE:
+        raise AssertionError(f"{what}: only {share:.6f} of the outputs "
+                             "bit-equal to the plain version's")
+    if mode[1] != wg.EPI_NONE:
+        if mode[1] == wg.EPI_STATS:
+            terms = torch.stack([ref.abs().sum((0, 2, 3)),
+                                 ref.square().sum((0, 2, 3))])
+        else:  # |g| = |out / inv|
+            g = ref.abs() / kw["scal"][0].abs()[None, :, None, None]
+            terms = torch.stack([g.sum((0, 2, 3)), (g * kw["cvals"].float(
+            ).abs()).sum((0, 2, 3))])
+        if not ((got[1] - want[1]).abs() <= 1e-5 * terms + 1e-6).all():
+            raise AssertionError(f"{what}: sums differ by "
+                                 f"{(got[1] - want[1]).abs().max()}")
+    if kw["aux"]:
+        check_bitwise(f"{what} aux", got[-1], want[-1])
+    return float(err.max()), share
+
+
+def winograd_cost(mode, n, c, co, h, w):
+    """(bytes, float32 operations, bf16 tensor-core operations) of one
+    launch: each input read once, each output written once; the 16
+    products; the BT (32 adds per tile and input channel) and AT (24 per
+    tile and output channel) transforms, the prologue (3 per input
+    element) and the epilogue (3 per output element for the sums, 6 for
+    the BN mask)."""
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+    pro, epi = mode
+    x_el, o_el = n * c * h * w, n * co * h * w
+    tiles = n * -(-h // 2) * -(-w // 2)
+    nbytes = x_el * 2 + 16 * c * co * 2 + o_el * 2
+    ops = tiles * (32 * c + 24 * co)
+    if pro != wg.PRO_NONE:  # scalars, the aux write, the partner read
+        nbytes += 2 * c * 4 + x_el * 2 * (2 if pro == wg.PRO_DYEFF else 1)
+        ops += 3 * x_el
+    if epi != wg.EPI_NONE:  # the sums
+        nbytes += 2 * co * 4
+        ops += 3 * o_el
+    if epi == wg.EPI_BN_ACT:  # cvals and the scalars
+        nbytes += o_el * 2 + 2 * co * 4
+        ops += 3 * o_el
+    return nbytes, ops, 2 * 16 * tiles * c * co
+
+
+def check_winograd_kernel(device):
+    """winograd_call on the card vs winograd_reference on the card in each
+    ported mode, at the flagship chain's shape [128,128,52,52] -> 128 and
+    at edge cases (odd H and W with C = Co = 8, a ragged final block of
+    tiles with Co below the kernel's channel block, a batch below 32 at the
+    chain's width, a wide W); two launches repeat bitwise.  Times each
+    mode at the chain's shape beside its bound and the library's
+    convolution (F.conv2d plus the float32 sums for the forward modes,
+    torch.nn.grad.conv2d_input for the gradient modes; neither includes
+    the fused prologue or the BN mask).  Returns the records of the four
+    modes on the train path; the plain-conv mode's numbers are printed
+    on a line of their own."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+
+    cases = [("flagship_chain", WINOGRAD_SHAPE),
+             ("odd_13x11_c8", (2, 8, 8, 13, 11)),
+             ("ragged_tiles_co24", (3, 16, 24, 7, 9)),
+             ("n8_chain_width", (8, 128, 128, 26, 26)),
+             ("wide_w", (1, 8, 72, 6, 200))]
+    errors = {}
+    for i, (name, shape) in enumerate(cases):
+        a = winograd_inputs(*shape, device, SEED + 50 + i)
+        u = wg.transform_weights(a["w"]).to(torch.bfloat16)
+        for mode, mode_name in wg.MODES.items():
+            kw = winograd_kwargs(mode, a)
+            got = wg.winograd_call(a["x"], u, **kw)
+            again = wg.winograd_call(a["x"], u, **kw)
+            want = wg.winograd_reference(a["x"], u, **kw)
+            what = f"winograd_call {mode_name} {name}"
+            err, share = check_winograd_close(what, got, want, mode, kw)
+            for first, second in zip(got, again):
+                check_bitwise(f"{what} repeat", first, second)
+            if name == "flagship_chain":
+                errors[mode_name] = err
+            phase("kernels.winograd_call.case", case=name, mode=mode_name,
+                  shape=shape, max_abs_err=err, bitwise_share=share)
+        del a, u, got, again, want
+
+    n, c, co, h, w = WINOGRAD_SHAPE
+    a = winograd_inputs(*WINOGRAD_SHAPE, device, SEED)
+    u = wg.transform_weights(a["w"]).to(torch.bfloat16)
+    w_fwd = a["w"].flip(2, 3).transpose(0, 1)  # the conv whose dx it is
+
+    def conv_and_sums():
+        y = F.conv2d(a["x"], a["w"], padding=1)
+        yf = y.float()
+        return y, torch.stack([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))])
+
+    def conv_input_grad():
+        return torch.nn.grad.conv2d_input((n, co, h, w), w_fwd, a["x"],
+                                          padding=1)
+
+    library = {"conv": lambda: F.conv2d(a["x"], a["w"], padding=1),
+               "conv_stats": conv_and_sums, "bn_act_conv_stats":
+               conv_and_sums, "dyeff_conv": conv_input_grad,
+               "dyeff_conv_bn_act": conv_input_grad}
+    records = []
+    for mode, mode_name in wg.MODES.items():
+        kw = winograd_kwargs(mode, a)
+        nbytes, ops, tensor_ops = winograd_cost(mode, *WINOGRAD_SHAPE)
+        bound_ms, bound_by = bound(nbytes, ops, tensor_ops)
+        kernel_ms = cuda_time_ms(lambda: wg.winograd_call(a["x"], u, **kw))
+        plain_ms = cuda_time_ms(lambda: wg.winograd_reference(a["x"], u,
+                                                              **kw), iters=3)
+        library_ms = cuda_time_ms(library[mode_name])
+        record = {
+            "name": f"winograd_call.{mode_name}", "route": "cuda",
+            "source": "yolov3_tensorflow_tpu_torch/ops/csrc/winograd.cu",
+            "replaces": "yolov3_tensorflow_tpu/ops/winograd.py:429",
+            "max_abs_err": errors[mode_name], "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+        }
+        phase(f"kernels.winograd_call.{mode_name}",
+              shape=list(WINOGRAD_SHAPE), bytes=nbytes, ops=ops,
+              tensor_ops=tensor_ops, ms=kernel_ms, bound_ms=bound_ms,
+              bound_by=bound_by, plain_ms=plain_ms, library_ms=library_ms,
+              max_abs_err=errors[mode_name],
+              tflop_per_s=tensor_ops / kernel_ms / 1e9,
+              gbytes_per_s=nbytes / kernel_ms / 1e6)
+        if f"winograd_call.{mode_name}" in KERNEL_PATHS:
+            records.append(record)
+    del a, u
+    free_card()
+    return records
+
+
 # -------------------------------------------------------------- model --
 def seeded_state_dict(cfg, device):
     """Flagship weights from SEED, with non-trivial BN scale, bias and
@@ -637,7 +864,7 @@ def serve(cfg, predictor, device, gpu, kernels, n_requests=16,
             futures.append(fut)
         answers = [f.result(timeout=300) for f in futures]
         wall = time.perf_counter() - t0
-        launches = {k: f.launches for k, f in kernel_wrappers().items()}
+        launches = launch_counts()
     finally:
         batcher.stop()
     if not all(launches[k] for k in kernels):
@@ -703,37 +930,41 @@ def free_card():
     torch.cuda.empty_cache()
 
 
-def descent(backbone, device, images, labels):
+def descent(backbone, device, images, labels, name=None, **cfg_kw):
     """DESCENT_STEPS train steps on one fixed batch without augmentation:
-    the total loss must fall."""
+    the total loss must fall.  ``cfg_kw``: further config fields."""
     from yolov3_tensorflow_tpu_torch.train.trainer import YOLOv3Trainer
-    trainer = YOLOv3Trainer(train_config(backbone, is_augment=False),
-                            device, seed=SEED)
+    name = name or f"train.{backbone}"
+    trainer = YOLOv3Trainer(train_config(backbone, is_augment=False,
+                                         **cfg_kw), device, seed=SEED)
     state, losses = trainer.state, []
     for _ in range(DESCENT_STEPS):
         state, metrics = trainer.train_step(state, images, labels)
         losses.append(metrics["total_loss"])
     losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train {backbone}: total_loss did not fall "
+        raise AssertionError(f"{name}: total_loss did not fall "
                              f"over {DESCENT_STEPS} steps on one batch: "
                              f"{losses}")
-    phase(f"train.{backbone}.descent", steps=DESCENT_STEPS,
+    phase(f"{name}.descent", steps=DESCENT_STEPS,
           total_loss=losses, batch=TRAIN_BATCH, augment=False)
     del trainer, state, metrics
     free_card()
 
 
-def timed_steps(backbone, augment_backend, device, images, labels, gpu):
+def timed_steps(backbone, augment_backend, device, images, labels, gpu,
+                name=None, **cfg_kw):
     """WARMUP_STEPS + TIMED_STEPS augmented train steps with every launch
     count set to 0 just before them; returns the run's numbers and its
-    launch counts."""
+    launch counts.  ``cfg_kw``: further config fields."""
     import torch
 
     from yolov3_tensorflow_tpu_torch.train.trainer import YOLOv3Trainer
+    name = name or f"train.{backbone}"
     trainer = YOLOv3Trainer(
         train_config(backbone, is_augment=True,
-                     augment_backend=augment_backend), device, seed=SEED)
+                     augment_backend=augment_backend, **cfg_kw), device,
+        seed=SEED)
     state = trainer.state
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -746,11 +977,11 @@ def timed_steps(backbone, augment_backend, device, images, labels, gpu):
         state, metrics = trainer.train_step(state, images, labels)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in kernel_wrappers().items()}
+    launches = launch_counts()
     final = {k: v.float().tolist() if torch.is_tensor(v) else v
              for k, v in metrics.items()}
     if not np.isfinite(final["total_loss"]):
-        raise AssertionError(f"train {backbone} {augment_backend}: "
+        raise AssertionError(f"{name} {augment_backend}: "
                              f"non-finite loss {final}")
     steps = WARMUP_STEPS + TIMED_STEPS
     run = dict(img_per_s=TRAIN_BATCH * TIMED_STEPS / dt,
@@ -758,7 +989,7 @@ def timed_steps(backbone, augment_backend, device, images, labels, gpu):
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                launches=launches,
                launches_per_step={k: v / steps for k, v in launches.items()})
-    phase(f"train.{backbone}.{augment_backend}", batch=TRAIN_BATCH,
+    phase(f"{name}.{augment_backend}", batch=TRAIN_BATCH,
           timed_steps=TIMED_STEPS, final_total_loss=final["total_loss"],
           gpu=gpu, **run)
     del trainer, state, metrics
@@ -811,6 +1042,30 @@ def train_v2(device, gpu):
     return run["launches"]
 
 
+def train_winograd(device, gpu):
+    """The flagship train step at conv_backend="winograd": the descent
+    check, then the timed run with augment_backend "auto", which must
+    launch each of the chain's four Winograd modes once per step (and the
+    plain-conv mode never).  Returns its launch counts."""
+    name = "train.resnet-18.winograd"
+    images, labels = train_batch(device)
+    descent(FLAGSHIP, device, images, labels, name=name,
+            conv_backend="winograd")
+    run = timed_steps(FLAGSHIP, "auto", device, images, labels, gpu,
+                      name=name, conv_backend="winograd")
+    launches = run["launches"]
+    steps = WARMUP_STEPS + TIMED_STEPS
+    chain = [k for k, path in KERNEL_PATHS.items() if path == name]
+    counts = {k: launches[k] for k in chain + ["winograd_call.conv"]}
+    if [counts[k] for k in chain] != [steps] * len(chain) \
+            or counts["winograd_call.conv"]:
+        raise AssertionError(f"{name}: Winograd launches {counts}, "
+                             f"{steps} of each chain mode expected")
+    require_launches(name, launches, ("bn_pool_relu_fwd", "bn_pool_relu_bwd",
+                                      "noisy_normalize"))
+    return launches
+
+
 def serve_model(backbone, device, gpu, kernels):
     """The batch-64 eval forward against the plain stem, then 16 requests
     through the DynamicBatcher.  Returns the serve run's launch counts."""
@@ -850,6 +1105,7 @@ def main() -> int:
         records += check_train_stem_kernels(device)
         records.append(check_noise_kernel(device))
         records += check_pool_kernels(device)
+        records += check_winograd_kernel(device)
     print("kernels: " + json.dumps([r["name"] for r in records]),
           flush=True)
 
@@ -864,6 +1120,8 @@ def main() -> int:
                                                   ("max_pool_s2_eval",))
     with timed("train.resnet-18-v2"):
         paths["train.resnet-18-v2"] = train_v2(device, gpu)
+    with timed("train.resnet-18.winograd"):
+        paths["train.resnet-18.winograd"] = train_winograd(device, gpu)
     for r in records:
         r["launches"] = paths[KERNEL_PATHS[r["name"]]][r["name"]]
     phase("seconds", phase="total",

@@ -28,6 +28,8 @@ from yolov3_tensorflow_tpu_torch.data import augment
 from yolov3_tensorflow_tpu_torch.ops.augment_noise import (_ndtri,
                                                            noisy_normalize)
 
+from . import torch_threads  # noqa: F401
+
 
 def images(n, h, w, seed=0):
     return np.random.RandomState(seed).randint(0, 256, (n, h, w, 3),

@@ -33,6 +33,8 @@ from yolov3_tensorflow_tpu_torch.models.detector import (YOLOv3Detector,
                                                          unpack_heads)
 from yolov3_tensorflow_tpu_torch.tools.import_flax import import_flax
 
+from . import torch_threads  # noqa: F401
+
 HW = (64, 64)
 FP32_ATOL = 2e-3
 BF16_ATOL = 3e-2

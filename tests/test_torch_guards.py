@@ -9,6 +9,8 @@ import sys
 import pytest
 import torch
 
+from . import torch_threads  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "yolov3_tensorflow_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yolov3_tensorflow_tpu")
@@ -62,17 +64,16 @@ def tiny_cfg(**kw):
 
 
 def test_winograd_conv_backend_raises_in_training():
-    """The Winograd chain is the next slice: asking for it in training
-    raises and names it, never running the direct conv instead."""
+    """The Winograd chain's module-1 blocks (winograd_min_channels=64)
+    need the residual-boundary kernel modes, which are not ported: a train
+    forward raises and names them, never running the direct conv instead.
+    Eval runs direct convolution, as in the JAX package."""
     from yolov3_tensorflow_tpu_torch.models.detector import build_detector
-    from yolov3_tensorflow_tpu_torch.train.trainer import YOLOv3Trainer
-    cfg = tiny_cfg(conv_backend="winograd")
-    with pytest.raises(NotImplementedError, match="Winograd.*ROADMAP"):
-        YOLOv3Trainer(cfg, "cpu")
+    cfg = tiny_cfg(conv_backend="winograd", winograd_min_channels=64)
     model = build_detector(cfg, "cpu").train()
-    with pytest.raises(NotImplementedError, match="winograd"):
-        model(torch.zeros(1, 3, 64, 64))
-    # eval runs direct convolution in the JAX package too
+    with pytest.raises(NotImplementedError,
+                       match="hconv_bn_add_act_stats.*ROADMAP"):
+        model(torch.zeros(2, 3, 64, 64))
     assert model.eval()(torch.zeros(1, 3, 64, 64))[0].shape[0] == 1
     with pytest.raises(ValueError, match="unknown conv_backend"):
         build_detector(tiny_cfg(conv_backend="im2col"), "cpu")
@@ -180,6 +181,67 @@ def test_pool_wrappers_raise_rather_than_fall_back(monkeypatch, name,
 def test_pool_wrappers_refuse_other_devices(name):
     with pytest.raises(ValueError, match="no kernel for device meta"):
         pool_calls()[name]()
+
+
+# ----------------------------------------------------- winograd ----
+def test_winograd_modules_are_among_the_checked_files():
+    files = port_files()
+    for rel in (("ops", "winograd.py"), ("models", "resnet18.py"),
+                ("models", "layers.py"), ("models", "detector.py"),
+                ("train", "trainer.py"), ("tools", "profile_train.py")):
+        assert os.path.join(PORT, *rel) in files
+
+
+def winograd_call_on_meta(mode):
+    """The Winograd wrapper in ``mode`` on meta tensors of a (2, 8, 6, 6)
+    input with 8 output channels."""
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+    x = torch.empty(2, 8, 6, 6, dtype=torch.bfloat16, device="meta")
+    u = torch.empty(16, 8, 8, dtype=torch.bfloat16, device="meta")
+    scal = torch.empty(2, 8, device="meta")
+    pro, epi = mode
+    return wg.winograd_call(x, u, partner=x, cvals=x, scal=scal, scal2=scal,
+                            pro=pro, epi=epi, aux=pro != wg.PRO_NONE)
+
+
+def winograd_modes():
+    from yolov3_tensorflow_tpu_torch.ops.winograd import MODES
+    return list(MODES)
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+@pytest.mark.parametrize("mode", winograd_modes(), ids=str)
+def test_winograd_wrapper_raises_rather_than_falls_back(monkeypatch, mode,
+                                                        failure):
+    """On a device tensor the Winograd wrapper launches its kernel or
+    raises: a failed build or launch propagates, no launch is counted and
+    the plain version never runs (meta tensors stand in for CUDA ones)."""
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain version ran on a device tensor")
+
+    def failed_build():
+        raise RuntimeError("kernel build failed: nvcc error")
+
+    monkeypatch.setattr(wg, "_check_cuda_args", lambda *args: None)
+    monkeypatch.setattr(wg, "_stream", lambda t: 0)
+    monkeypatch.setattr(wg, "winograd_reference", no_plain)
+    monkeypatch.setattr(wg, "kernel_library",
+                        failed_build if failure == "build"
+                        else _FailingLibrary)
+    before = {m: k.launches for m, k in wg.KERNELS.items()}
+    match = "build failed" if failure == "build" else \
+        "winograd_call .* failed to launch: unspecified launch failure"
+    with pytest.raises(RuntimeError, match=match):
+        winograd_call_on_meta(mode)
+    assert {m: k.launches for m, k in wg.KERNELS.items()} == before
+
+
+@pytest.mark.parametrize("mode", winograd_modes(), ids=str)
+def test_winograd_wrapper_refuses_other_devices(mode):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        winograd_call_on_meta(mode)
 
 
 @pytest.mark.parametrize("backbone", ["resnext-18", "mixnet-18",

@@ -18,6 +18,8 @@ from yolov3_tensorflow_tpu_torch.models.layers import (Conv2dSame,
                                                        same_padding,
                                                        upsample2x_nearest)
 
+from . import torch_threads  # noqa: F401
+
 ATOL = 1e-5
 
 

@@ -23,6 +23,7 @@ from yolov3_tensorflow_tpu_torch.config import Config
 from yolov3_tensorflow_tpu_torch.ops.labels import LabelDecoder, valid_mask
 from yolov3_tensorflow_tpu_torch.ops.loss import YOLOv3Loss
 
+from . import torch_threads  # noqa: F401
 from .reference_loss import reference_loss
 
 KEYS = ("rectified_coord_loss", "coord_loss_xy", "coord_loss_wh",

@@ -26,6 +26,8 @@ from yolov3_tensorflow_tpu_torch.ops.stem_pool import (
     max_pool_s2, max_pool_s2_bwd, max_pool_s2_eval, max_pool_s2_fwd,
     same_pool_geometry)
 
+from . import torch_threads  # noqa: F401
+
 SHAPES = [(4, 8, 16, 8), (2, 64, 32, 32)]  # (N, C, H, W)
 SHAPE_IDS = ["4x8x16x8", "2x64x32x32"]
 KINDS = ["randn", "negative", "constant", "quantized", "float32"]

@@ -19,6 +19,8 @@ from yolov3_tensorflow_tpu_torch.infer.postprocess import (
 from yolov3_tensorflow_tpu_torch.ops.decoder import YOLOv3Decoder
 from yolov3_tensorflow_tpu_torch.ops.nms import BatchedNMS, pairwise_iou
 
+from . import torch_threads  # noqa: F401
+
 FLOAT_ATOL = 1e-6
 EXACT_COLS = [6, 8, 9]  # cls, head, keep
 

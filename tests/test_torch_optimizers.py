@@ -24,6 +24,8 @@ from yolov3_tensorflow_tpu_torch.train.optimizers import (make_optimizer,
 from yolov3_tensorflow_tpu_torch.train.schedule import \
     piecewise_epoch_schedule
 
+from . import torch_threads  # noqa: F401
+
 # epochs of 2 steps: lr 1e-3 (steps 0-3), 1e-2 (4-5), 2e-3 (6-)
 SCHEDULE = dict(step_epoch=(1, 2), step_lr=(1e-3, 1e-2, 2e-3))
 SPE = 2

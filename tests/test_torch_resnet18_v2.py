@@ -28,6 +28,7 @@ from yolov3_tensorflow_tpu_torch.ops.stem_pool import (max_pool_s2_eval,
                                                        max_pool_s2_fwd)
 from yolov3_tensorflow_tpu_torch.tools.import_flax import import_flax
 
+from . import torch_threads  # noqa: F401
 from .test_torch_detector import (BF16_ATOL, FP32_ATOL, cfg_pair,
                                   jax_heads, match_rows, nhwc,
                                   seeded_variables)

@@ -26,6 +26,8 @@ from yolov3_tensorflow_tpu_torch.infer.server import (DetectionEngine,
                                                       unletterbox_boxes)
 from yolov3_tensorflow_tpu_torch.models.detector import build_detector
 
+from . import torch_threads  # noqa: F401
+
 SIZES = [(480, 640), (640, 480), (416, 416), (100, 37), (4000, 8),
          (8, 4000), (417, 415), (1, 1)]
 

@@ -15,6 +15,8 @@ from yolov3_tensorflow_tpu.ops.stem_pool import (
 from yolov3_tensorflow_tpu_torch.ops.stem_pool import (
     bn_pool_relu_eval, bn_pool_relu_eval_reference, same_pool_geometry)
 
+from . import torch_threads  # noqa: F401
+
 
 def jax_classic(y, inv, shift):
     """relu(max_pool3x3s2_SAME(bf16(bf16(y*inv) + shift))) on [H,W,C,N]

@@ -22,6 +22,8 @@ from yolov3_tensorflow_tpu_torch.ops.stem_pool import (
     bn_pool_relu, bn_pool_relu_bwd, bn_pool_relu_eval, bn_pool_relu_fwd,
     same_pool_geometry)
 
+from . import torch_threads  # noqa: F401
+
 SHAPE = (16, 8, 8, 4)  # [H, W, C, N]: the Pallas kernel needs H % 8 == 0
 
 

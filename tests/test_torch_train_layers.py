@@ -28,6 +28,8 @@ from yolov3_tensorflow_tpu_torch.models.layers import (FusedBatchNorm,
                                                        l2_regularization)
 from yolov3_tensorflow_tpu_torch.tools.import_flax import import_flax
 
+from . import torch_threads  # noqa: F401
+
 HW = (64, 64)
 
 

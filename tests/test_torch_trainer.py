@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from yolov3_tensorflow_tpu.config import Config as JaxConfig
 from yolov3_tensorflow_tpu.train.trainer import YOLOv3Trainer as JaxTrainer
@@ -44,6 +45,8 @@ from yolov3_tensorflow_tpu_torch.models.detector import build_detector
 from yolov3_tensorflow_tpu_torch.ops.augment_noise import noisy_normalize
 from yolov3_tensorflow_tpu_torch.tools.import_flax import import_flax
 from yolov3_tensorflow_tpu_torch.train.trainer import YOLOv3Trainer
+
+from . import torch_threads  # noqa: F401
 
 N, STEPS = 4, 3
 # bound on the relative L2 gap of each conv's 3-step weight change
@@ -86,7 +89,12 @@ def run_pair(**kw):
     start = jax_state_dict(jt.state, build_detector(cfg, "cpu"))
     pt = YOLOv3Trainer(cfg, "cpu", state_dict=start)
     images, labels = batch()
-    js, ps = jt.state, pt.state
+    # the state on the trainer's mesh, as every step returns it: the first
+    # step then compiles the program the later ones reuse (from the
+    # uncommitted init state it compiles it twice; the steps' bits are
+    # the same either way)
+    js = jax.device_put(jt.state, NamedSharding(jt.mesh, PartitionSpec()))
+    ps = pt.state
     jm_all, pm_all, counts = [], [], []
     for _ in range(STEPS):
         js, jm = jt.train_step(js, jnp.asarray(images), jnp.asarray(labels))

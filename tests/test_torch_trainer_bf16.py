@@ -9,6 +9,7 @@ differently in XLA and PyTorch, so parameters are not compared here
 import numpy as np
 import pytest
 
+from . import torch_threads  # noqa: F401
 from .test_torch_trainer import run_pair
 
 

@@ -7,8 +7,8 @@ the other.  Fields that only steer the TPU build (XLA compiler options,
 mesh axes, spatial partitioning) are kept so configs stay interchangeable;
 their comments say what the port does with them.  The train knobs whose
 features are not ported yet (EMA, freeze_backbone, mixup, gradient
-accumulation, transfer init, multi-scale, the loss extensions, the
-Winograd chain) raise in the trainer or the loss when they are set.
+accumulation, transfer init, multi-scale, the loss extensions) raise in
+the trainer or the loss when they are set.
 
 The piecewise learning-rate schedule mirrors ``lr_func`` (configs.py:23-27).
 """
@@ -276,11 +276,14 @@ class Config:
     # is fp32-only.  "float32" runs every conv in fp32 (the fused stem
     # still rounds its BN apply to bf16, as the TPU kernel does).
     compute_dtype: str = "bfloat16"
-    # conv algorithm: "winograd" is the JAX package's train-only fused
-    # chain, not ported yet (a train forward that asks for it raises);
+    # conv algorithm: "xla" is direct convolution; "winograd" runs the
+    # train-only fused Winograd chain (ops/winograd.py, the CUDA kernel
+    # on the card) where the JAX package's shape rules admit a block;
     # eval always runs direct convolution, in both packages.
     conv_backend: str = "xla"
-    # Winograd chain channel floor (train-only, see conv_backend).
+    # Winograd chain channel floor (train-only, see conv_backend).  Below
+    # 128 module 1's chain engages, whose residual-boundary kernel modes
+    # are not ported: a train forward then raises.
     winograd_min_channels: int = 128
     # grouped-conv algorithm for resnext-18 (not yet ported).
     grouped_backend: str = "auto"  # auto | grouped | dense

@@ -13,10 +13,14 @@ backbones.  The heads are op for op the JAX model's:
 
 ``forward`` returns the three raw heads in NCHW float32, in eval mode or,
 after ``.train()``, with train-mode BatchNorm everywhere and the train
-stem (the classic conv path; the Winograd chain of ``conv_backend=
-"winograd"`` is not ported yet and raises).  The JAX model
-returns them NHWC, and every reshape to (N, H, W, B, box_len) (decoder,
-:func:`pack_heads`) is over channels-last, so those permute first.
+stem.  With ``conv_backend="winograd"`` a train forward routes the convs
+that the JAX package's shape rules admit to the Winograd kernel (the
+backbone's chain, and the four 3x3 head links through
+``conv_bn_relu``, which the rules never admit at the heads' widths); eval
+always runs direct convolution, as in JAX.  The JAX model
+returns the heads NHWC, and every reshape to (N, H, W, B, box_len)
+(decoder, :func:`pack_heads`) is over channels-last, so those permute
+first.
 """
 from __future__ import annotations
 
@@ -32,22 +36,7 @@ from .resnet18 import ResNet18
 from .resnet18_v2 import ResNet18V2
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-CONV_BACKENDS = ("xla", "winograd")
 BACKBONES = {BACKBONE_RESNET_18: ResNet18, BACKBONE_RESNET_18_V2: ResNet18V2}
-
-
-def check_conv_backend(conv_backend: str, training: bool) -> None:
-    """The Winograd chain is train-only in the JAX package (eval always
-    runs direct convolution) and is not ported yet: a train forward that
-    asks for it raises rather than running the direct conv."""
-    if conv_backend not in CONV_BACKENDS:
-        raise ValueError(f"unknown conv_backend {conv_backend!r} "
-                         f"(choose from {', '.join(CONV_BACKENDS)})")
-    if training and conv_backend == "winograd":
-        raise NotImplementedError(
-            'conv_backend="winograd" (the fused Winograd chain, '
-            "yolov3_tensorflow_tpu/ops/winograd.py) is not ported yet: it "
-            "is the next slice in ROADMAP Queue 1; use conv_backend=\"xla\"")
 
 
 class YOLOv3Detector(BasicBackbone):
@@ -56,10 +45,8 @@ class YOLOv3Detector(BasicBackbone):
 
     def __init__(self, backbone_name: str = BACKBONE_RESNET_18,
                  head_channel_nums: Tuple[int, int, int] = (15, 10, 15),
-                 conv_backend: str = "xla", **kwargs):
+                 **kwargs):
         super().__init__(**kwargs)
-        check_conv_backend(conv_backend, training=False)
-        self.conv_backend = conv_backend
         if backbone_name not in BACKBONES:
             if backbone_name in ALL_BACKBONES:
                 raise NotImplementedError(
@@ -68,6 +55,8 @@ class YOLOv3Detector(BasicBackbone):
             raise ValueError(f"no such backbone: {backbone_name}")
         self.backbone = BACKBONES[backbone_name](
             dtype=self.dtype, stem_backend=self.stem_backend,
+            conv_backend=self.conv_backend,
+            winograd_min_channels=self.winograd_min_channels,
             generator=self.generator)
         c8, c16, c32 = head_channel_nums
         # creation order = the JAX model's call order (flax names)
@@ -91,7 +80,6 @@ class YOLOv3Detector(BasicBackbone):
 
     def forward(self, images: torch.Tensor):
         """images: (N, 3, H, W) float in [0, 1]."""
-        check_conv_backend(self.conv_backend, self.training)
         s8, s16, s32 = self.backbone(images)
 
         p32 = self.head_out_32(self.conv_bn_relu(s32, self.tower32))
@@ -123,6 +111,7 @@ def build_detector(cfg: Config, device="cuda",
         backbone_name=cfg.model_backbone,
         head_channel_nums=tuple(cfg.head_channel_nums),
         conv_backend=cfg.conv_backend,
+        winograd_min_channels=cfg.winograd_min_channels,
         dtype=COMPUTE_DTYPES[cfg.compute_dtype],
         stem_backend=cfg.stem_backend,
         generator=generator)

@@ -20,6 +20,12 @@ Port of ``yolov3_tensorflow_tpu/models/layers.py`` (the reference's
     the pool-only stem ``conv -> 3x3/s2 max-pool`` (ResNet-18-v2).
   * :func:`l2_regularization`: the explicit L2 terms Keras keeps in
     ``model.losses``.
+  * the Winograd routing of ``conv_backend="winograd"`` (train only):
+    :meth:`BasicBackbone.fused_ok` / :meth:`~BasicBackbone.chain_ok` (the
+    JAX package's shape rules and ``winograd_min_channels`` floor) and
+    :meth:`~BasicBackbone.fused_conv_stats`, the conv on the kernel
+    (ops/winograd.py) with its BatchNorm statistics from the epilogue,
+    which :meth:`FusedBatchNorm.stats_scalars` turns into apply scalars.
 
 Tensors are NCHW.  Modules carry flax's auto-names (``Conv_k``,
 ``FusedBatchNorm_k``, numbered in creation order per module), so a flax
@@ -37,6 +43,7 @@ from torch import nn
 from ..ops.stem_pool import (bn_pool_relu, bn_pool_relu_eval,
                               bn_pool_relu_eval_reference, max_pool_s2,
                               max_pool_s2_eval, same_pool_geometry)
+from ..ops.winograd import eligible, hconv_bn_act_stats, hconv_stats
 
 L2_CONV_DECAY = 5.0e-4  # conv kernel weight decay (basic_backbone.py:11)
 BN_L2_GAMMA_DECAY = 1.0e-5  # BN gamma weight decay (basic_backbone.py:12)
@@ -46,6 +53,7 @@ BN_EPSILON = 1e-5  # (basic_backbone.py:14)
 # (yolov3_detector.py:98-100); their module names contain this marker
 HEAD_OUT_MARKER = "head_out"
 STEM_BACKENDS = ("auto", "fused", "xla")
+CONV_BACKENDS = ("xla", "winograd")
 # flax he_normal = variance_scaling(2, fan_in, truncated_normal): the
 # normal is truncated at 2 std and rescaled by this constant
 _TRUNC_STD = 0.87962566103423978
@@ -152,13 +160,20 @@ class FusedBatchNorm(nn.Module):
         x32 = x.float()
         return self.stats_scalars(x32.sum((0, 2, 3)),
                                   x32.square().sum((0, 2, 3)),
-                                  float(x32.numel() // x32.shape[1]))
+                                  count_per_channel(x32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv, shift = self.batch_scalars(x) if self.training \
             else self.scalars()
-        return x.to(self.dtype) * inv.to(self.dtype)[None, :, None, None] \
-            + shift.to(self.dtype)[None, :, None, None]
+        return bn_apply(x, inv, shift, self.dtype)
+
+
+def bn_apply(x: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The BatchNorm apply ``x * inv + shift`` on NCHW ``x`` in ``dtype``
+    (each op rounds to it), from float32 per-channel scalars."""
+    return x.to(dtype) * inv.to(dtype)[None, :, None, None] \
+        + shift.to(dtype)[None, :, None, None]
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -174,14 +189,20 @@ class BasicBackbone(nn.Module):
     auto-names; the remaining methods apply them."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
-                 stem_backend: str = "auto",
+                 stem_backend: str = "auto", conv_backend: str = "xla",
+                 winograd_min_channels: int = 128,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if stem_backend not in STEM_BACKENDS:
             raise ValueError(f"unknown stem_backend {stem_backend!r} "
                              f"(choose from {', '.join(STEM_BACKENDS)})")
+        if conv_backend not in CONV_BACKENDS:
+            raise ValueError(f"unknown conv_backend {conv_backend!r} "
+                             f"(choose from {', '.join(CONV_BACKENDS)})")
         self.dtype = dtype
         self.stem_backend = stem_backend
+        self.conv_backend = conv_backend
+        self.winograd_min_channels = winograd_min_channels
         self.generator = generator
         self._name_counts = {}
 
@@ -223,6 +244,15 @@ class BasicBackbone(nn.Module):
         return bn(conv(x))
 
     def conv_bn_relu(self, x, pair):
+        """conv_bn -> relu, on the fused Winograd path when eligible (the
+        conv with its statistics epilogue, then one apply + relu pass; JAX
+        layers.py:640-653), otherwise the classic composition."""
+        conv, bn = pair
+        if self.fused_ok(x, conv):
+            y, total, total_sq = self.fused_conv_stats(x, conv)
+            inv, shift = bn.stats_scalars(total, total_sq,
+                                          count_per_channel(y))
+            return self.activation(bn_apply(y, inv, shift, self.dtype))
         return self.activation(self.conv_bn(x, pair))
 
     def bn_activation(self, x, bn):
@@ -235,6 +265,46 @@ class BasicBackbone(nn.Module):
         if nin is not None:
             identity = self.conv_bn(identity, nin)
         return identity + residual
+
+    # ------------------------------------------- winograd fused chain --
+    def _use_winograd(self, shape_nhwc, conv: Conv2dSame,
+                      device_type: str) -> bool:
+        """Does ``conv`` on an input of NHWC shape ``shape_nhwc`` run on
+        the Winograd kernel?  (JAX layers.py:328-349): not for "xla"; not
+        below the ``winograd_min_channels`` floor on either side; then
+        :func:`eligible`."""
+        if self.conv_backend == "xla":
+            return False
+        filters = conv.weight.shape[0]
+        min_c = self.winograd_min_channels
+        if min_c and (shape_nhwc[3] < min_c or filters < min_c):
+            return False
+        k, s = conv.kernel_size, conv.stride
+        return eligible(shape_nhwc, filters, (k, k), (s, s), conv.padding, 1,
+                        device_type)
+
+    def chain_ok(self, shape_nchw, conv: Conv2dSame, device_type: str
+                 ) -> bool:
+        """Can a residual block whose first conv is ``conv`` run on the
+        fused Winograd chain at this NCHW input shape?  Train only."""
+        n, c, h, w = shape_nchw
+        return self.training and self._use_winograd((n, h, w, c), conv,
+                                                    device_type)
+
+    def fused_ok(self, x: torch.Tensor, conv: Conv2dSame) -> bool:
+        """Can a conv_bn -> relu link on NCHW ``x`` run on the fused
+        Winograd path?  Train only."""
+        return self.chain_ok(x.shape, conv, x.device.type)
+
+    def fused_conv_stats(self, x, conv: Conv2dSame, prologue=None):
+        """``conv`` on the Winograd kernel, returning (y_raw, sum,
+        sumsq): with ``prologue=(inv, shift)`` the previous BatchNorm's
+        apply + relu ride the conv's input read (JAX ``fused_conv_stats``
+        with ``WinogradConv3x3``)."""
+        w = conv.weight.to(self.dtype)
+        if prologue is None:
+            return hconv_stats(x, w)
+        return hconv_bn_act_stats(x, w, *prologue)
 
     def stem_conv_bn_pool_relu(self, x, pair):
         """The reference stem chain conv_bn -> max_pool(3x3/2) -> relu
@@ -270,6 +340,11 @@ class BasicBackbone(nn.Module):
         if self.stem_backend == "xla":
             return max_pool_same(y)
         return max_pool_s2(y) if self.training else max_pool_s2_eval(y)
+
+
+def count_per_channel(y: torch.Tensor) -> float:
+    """Elements per channel of NCHW ``y``: the BatchNorm count."""
+    return float(y.numel() // y.shape[1])
 
 
 def max_pool_same(x: torch.Tensor) -> torch.Tensor:

@@ -2,12 +2,14 @@
 
     python -m yolov3_tensorflow_tpu_torch.tools.profile_train \\
         [--backbone resnet-18] [--batch 128] [--backends fused xla] \\
-        [--host-batch]
+        [--conv-backend xla winograd] [--host-batch]
 
 Builds ``YOLOv3Trainer`` for a YOLOv3 at 416x416 (the flagship ResNet-18
 unless ``--backbone`` names another ported one, e.g. resnet-18-v2; bf16,
 RAdam, augmentation on, seeded random weights, bench.py's labels) and,
-for each noise backend, prints one JSON line:
+for each conv backend (``--conv-backend``: "xla" direct convolution,
+"winograd" the fused Winograd chain) and each noise backend, prints one
+JSON line:
 
   * ``step_ms`` / ``img_per_s``: median host-clock time of a train step
     ending in ``torch.cuda.synchronize()``, over ``--steps`` steps;
@@ -23,9 +25,10 @@ for each noise backend, prints one JSON line:
     uint8 batch is fed from pageable host memory every step, as a loader
     without pinned memory would; by default it stays on the card, as in
     bench.py);
-  * ``category_ms``: device time by kind of kernel (the port's own
-    kernels, convolutions, cuDNN's layout transposes, element-wise and
-    reduction kernels, copies, other);
+  * ``category_ms``: device time by kind of kernel (the Winograd
+    kernel, the port's other kernels, convolutions, cuDNN's layout
+    transposes, element-wise and reduction kernels, copies, other), and
+    ``winograd_share`` the Winograd kernel's share of the busy time;
   * ``top_kernels``: the kernels with the most device time.
 
 Needs a CUDA device; fails without one.
@@ -49,6 +52,7 @@ from ..train.trainer import YOLOv3Trainer
 RANGES = ("train.inputs", "train.forward", "train.loss", "train.optimizer")
 # kernel-name markers of each category, checked in this order
 CATEGORIES = (
+    ("winograd kernel", ("winograd_f2x3", "winograd_stats_final")),
     ("port kernels", ("pool3x3s2", "bn_pool_relu", "noisy_normalize")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions", ("conv", "xmma", "gemm", "cutlass", "sm90_", "cudnn")),
@@ -74,11 +78,12 @@ def _batch(n, seed):
     return images, labels
 
 
-def profile_backend(backend, args):
+def profile_backend(conv_backend, backend, args):
     cfg = Config(input_image_size=(416, 416, 3), batch_size=args.batch,
                  max_boxes=32, optimizer="radam", compute_dtype="bfloat16",
                  is_augment=True, augment_backend=backend,
-                 rectified_coord_num=-1, model_backbone=args.backbone)
+                 rectified_coord_num=-1, model_backbone=args.backbone,
+                 conv_backend=conv_backend)
     trainer = YOLOv3Trainer(cfg, "cuda", seed=args.seed)
     images, labels = _batch(args.batch, args.seed)
     if not args.host_batch:
@@ -123,7 +128,8 @@ def profile_backend(backend, args):
             + e.self_device_time_total / 1e3 * per_step
     step_ms = float(np.median(times))
     return {
-        "backbone": args.backbone, "backend": backend, "batch": args.batch,
+        "backbone": args.backbone, "conv_backend": conv_backend,
+        "backend": backend, "batch": args.batch,
         "host_batch": args.host_batch, "step_ms": step_ms,
         "img_per_s": args.batch / step_ms * 1e3,
         "profiled_steps": args.profiled,
@@ -134,6 +140,8 @@ def profile_backend(backend, args):
         "h2d_ms_per_step": h2d_ms * per_step,
         "range_device_ms_per_step": ranges,
         "category_ms_per_step": categories,
+        "winograd_share": categories.get("winograd kernel", 0.0)
+        / (busy_ms * per_step),
         "top_kernels": [{"name": e.key[:90],
                          "ms_per_step": e.self_device_time_total / 1e3
                          * per_step,
@@ -150,6 +158,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--backends", nargs="+", default=["fused", "xla"],
                     choices=["fused", "xla"])
+    ap.add_argument("--conv-backend", nargs="+", default=["xla"],
+                    choices=["xla", "winograd"])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
@@ -162,11 +172,12 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
-    for backend in args.backends:
-        torch.cuda.reset_peak_memory_stats()
-        print(json.dumps({"gpu": gpu, **profile_backend(backend, args)}),
-              flush=True)
-        torch.cuda.empty_cache()
+    for conv_backend in args.conv_backend:
+        for backend in args.backends:
+            torch.cuda.reset_peak_memory_stats()
+            print(json.dumps({"gpu": gpu, **profile_backend(
+                conv_backend, backend, args)}), flush=True)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

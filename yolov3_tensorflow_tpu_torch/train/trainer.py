@@ -12,7 +12,9 @@ step reads a value back, so the host never waits for the card inside it.
 Left for later slices, each raising when its knob asks for it rather than
 being ignored (ROADMAP Queue 1): EMA, ``freeze_backbone``, mixup,
 gradient accumulation, transfer init, checkpointing, the epoch loop,
-validation, TensorBoard, multi-scale steps and the Winograd chain.
+validation, TensorBoard and multi-scale steps.  ``conv_backend=
+"winograd"`` runs the backbone's fused Winograd chain where the JAX
+package's shape rules admit it (models/resnet18.py).
 """
 from __future__ import annotations
 
@@ -26,8 +28,7 @@ from ..config import Config
 from ..data.augment import augment_batch, augment_batch_fused
 from ..device import resolve_device
 from ..infer.predict import normalize_images
-from ..models.detector import (COMPUTE_DTYPES, build_detector,
-                               check_conv_backend)
+from ..models.detector import COMPUTE_DTYPES, build_detector
 from ..models.layers import l2_regularization
 from ..ops.loss import YOLOv3Loss
 from .optimizers import make_optimizer
@@ -56,7 +57,6 @@ def _refuse_deferred(cfg: Config) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to the PyTorch trainer yet "
                 "(ROADMAP Queue 1, item 6)")
-    check_conv_backend(cfg.conv_backend, training=True)
     if cfg.augment_backend not in AUGMENT_BACKENDS:
         raise ValueError(f"unknown augment_backend {cfg.augment_backend!r}"
                          f" (choose from {', '.join(AUGMENT_BACKENDS)})")

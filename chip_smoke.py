@@ -8,9 +8,10 @@ paths' shapes and at edge cases, and times it beside its bound and the
 closest PyTorch library call.  Tolerance: bitwise equality for the stem
 and noise kernels; the Winograd kernel, whose tensor-core sums run in
 another order than the plain version's float32 product, within one bf16
-step per output (|k - p| <= 2^-7 |p| + 1e-4 max|p|), its per-channel sums
-within 1e-5 of their terms' summed magnitudes, its aux output bitwise,
-and at least WINOGRAD_BITWISE_SHARE of its outputs bitwise.
+step per output (|k - p| <= 2^-7 |p| + 1e-4 max|p|) with at least
+WINOGRAD_BITWISE_SHARE of them bitwise (out, and out3 of EPI_BN_ADD), its
+per-channel sums within 1e-5 of their terms' summed magnitudes, and its
+aux output bitwise.
 Then it drives the two paths of two models at 416x416 (seeded random
 weights): the flagship ResNet-18 YOLOv3, whose stem runs the fused BN +
 pool + relu kernels, and ResNet-18-v2 YOLOv3, whose stem runs the
@@ -28,7 +29,11 @@ pool-only kernels:
     (``train.resnet-18.winograd``): module 2's second block on the fused
     Winograd chain, two forward and two gradient launches of the Winograd
     kernel per step; the descent check, then 3 warm-up and 20 timed steps
-    with augment_backend "auto".
+    with augment_backend "auto";
+  * the same at ``winograd_min_channels=64``
+    (``train.resnet-18.winograd64``): module 1's two blocks join the chain,
+    the second through the residual-boundary modes, twelve Winograd
+    launches per step (WINOGRAD_PATHS).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and fails if one of its kernels was not launched.  Each phase prints one
@@ -76,11 +81,31 @@ KERNEL_PATHS = {"bn_pool_relu_eval": "serve.resnet-18",
                 "winograd_call.bn_act_conv_stats": "train.resnet-18.winograd",
                 "winograd_call.dyeff_conv": "train.resnet-18.winograd",
                 "winograd_call.dyeff_conv_bn_act":
-                    "train.resnet-18.winograd"}
-# the Winograd chain's shape on the flagship train path: module 2 at
-# 416x416, batch 128, 128 -> 128 channels
-WINOGRAD_SHAPE = (TRAIN_BATCH, 128, 128, FLAGSHIP_HW[0] // 8,
-                  FLAGSHIP_HW[1] // 8)
+                    "train.resnet-18.winograd",
+                "winograd_call.bn_add_conv_stats":
+                    "train.resnet-18.winograd64",
+                "winograd_call.dyeff_conv_bn_add":
+                    "train.resnet-18.winograd64"}
+# the Winograd chain's shapes (N, C, Co, H, W) on the flagship train path
+# at 416x416, batch 128: module 2's second block, and module 1's blocks
+# at winograd_min_channels=64
+WINOGRAD_SHAPES = {
+    "module2_chain": (TRAIN_BATCH, 128, 128, FLAGSHIP_HW[0] // 8,
+                      FLAGSHIP_HW[1] // 8),
+    "module1_chain": (TRAIN_BATCH, 64, 64, FLAGSHIP_HW[0] // 4,
+                      FLAGSHIP_HW[1] // 4)}
+# each Winograd path: its winograd_min_channels, its chain shape (the
+# shape of the records of the modes KERNEL_PATHS gives it), and its
+# launches per train step of each mode (JAX models/resnet18.py:123-199: a chain block
+# runs two forward and two gradient launches; module 1's second block
+# starts from the first's deferred boundary)
+WINOGRAD_PATHS = {
+    "train.resnet-18.winograd": (128, "module2_chain", {
+        "conv_stats": 1, "bn_act_conv_stats": 1, "dyeff_conv": 1,
+        "dyeff_conv_bn_act": 1}),
+    "train.resnet-18.winograd64": (64, "module1_chain", {
+        "conv_stats": 2, "bn_act_conv_stats": 3, "bn_add_conv_stats": 1,
+        "dyeff_conv": 2, "dyeff_conv_bn_add": 1, "dyeff_conv_bn_act": 3})}
 # least share of the Winograd kernel's bf16 outputs bit-equal to the plain
 # version's (measured on an H100: 99.985% at the chain's shape, 100% at
 # the small edge cases)
@@ -560,26 +585,29 @@ def check_pool_kernels(device):
 
 def winograd_inputs(n, c, co, h, w, device, seed):
     """The Winograd kernel's operands of one case, on the card: bf16 x, y
-    (the PRO_DYEFF partner), cvals and OIHW weights; float32 (inv, shift)
-    over C and over Co, and (ds, dq) over C."""
+    (the partner: the identity of PRO_BN_ADD, y of PRO_DYEFF), cvals and
+    OIHW weights; float32 (inv, shift) over C and over Co, and (ds, dq)
+    over C; bf16 avals (a boundary activation, zero where it was cut) and
+    dvals (its cotangent) for EPI_BN_ADD."""
     import torch
-    g = torch.Generator(device="cpu").manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def draw(*shape, scale=1.0, dtype=torch.bfloat16):
-        t = torch.randn(*shape, generator=g) * scale
-        return t.to(device=device, dtype=dtype)
+        t = torch.randn(*shape, generator=g, device=device) * scale
+        return t.to(dtype)
 
     def inv_shift(k):
-        return torch.stack([torch.rand(k, generator=g) + 0.5,
-                            torch.randn(k, generator=g) * 0.2]).to(device)
+        return torch.stack([torch.rand(k, generator=g, device=device) + 0.5,
+                            draw(k, scale=0.2, dtype=torch.float32)])
 
     return dict(x=draw(n, c, h, w), y=draw(n, c, h, w),
                 cvals=draw(n, co, h, w),
                 w=draw(co, c, 3, 3, scale=(2.0 / (9 * c)) ** 0.5),
                 scal_c=inv_shift(c), scal_co=inv_shift(co),
-                scal2=torch.stack([torch.randn(c, generator=g) * 1e-3,
-                                   torch.randn(c, generator=g) * 1e-4]).to(
-                                       device))
+                scal2=torch.stack([draw(c, scale=1e-3, dtype=torch.float32),
+                                   draw(c, scale=1e-4, dtype=torch.float32)]),
+                avals=draw(n, co, h, w).clamp_(min=0),
+                dvals=draw(n, co, h, w))
 
 
 def winograd_kwargs(mode, a):
@@ -587,50 +615,73 @@ def winograd_kwargs(mode, a):
     from yolov3_tensorflow_tpu_torch.ops import winograd as wg
     pro, epi = mode
     kw = dict(pro=pro, epi=epi, aux=pro != wg.PRO_NONE)
-    if pro == wg.PRO_BN_ACT:
+    if pro in (wg.PRO_BN_ACT, wg.PRO_BN_ADD):
         kw["scal"] = a["scal_c"]
+    if pro in (wg.PRO_BN_ADD, wg.PRO_DYEFF):
+        kw["partner"] = a["y"]
     if pro == wg.PRO_DYEFF:
-        kw.update(partner=a["y"], scal2=a["scal2"])
-    if epi == wg.EPI_BN_ACT:
+        kw["scal2"] = a["scal2"]
+    if epi in (wg.EPI_BN_ACT, wg.EPI_BN_ADD):
         kw.update(cvals=a["cvals"], scal=a["scal_co"])
+    if epi == wg.EPI_BN_ADD:
+        kw.update(avals=a["avals"], dvals=a["dvals"])
     return kw
+
+
+def check_step_close(what, got, want):
+    """bf16 ``got`` within one bf16 step of ``want`` and at least
+    WINOGRAD_BITWISE_SHARE of it bitwise; returns (the max abs error, the
+    share of bit-equal outputs)."""
+    import torch
+    out, ref = got.float(), want.float()
+    if got.shape != want.shape or got.dtype != torch.bfloat16:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype}")
+    err = (out - ref).abs()
+    if not (err <= 2 ** -7 * ref.abs() + 1e-4 * ref.abs().max()).all():
+        raise AssertionError(f"{what}: more than one bf16 step from the "
+                             f"plain version (max abs err {err.max()})")
+    # the sums' order moves a few outputs by one step; a lost bf16
+    # rounding in the transforms moves about half of them
+    share = float((got == want).float().mean())
+    if share < WINOGRAD_BITWISE_SHARE:
+        raise AssertionError(f"{what}: only {share:.6f} of the outputs "
+                             "bit-equal to the plain version's")
+    return float(err.max()), share
 
 
 def check_winograd_close(what, got, want, mode, kw):
     """The kernel's outputs against the plain version's (tolerances in
     the module docstring); returns (the output's max abs error, its share
-    of bit-equal outputs)."""
+    of bit-equal outputs, out3's share or None)."""
     import torch
 
     from yolov3_tensorflow_tpu_torch.ops import winograd as wg
-    out, ref = got[0].float(), want[0].float()
-    if got[0].shape != want[0].shape or got[0].dtype != torch.bfloat16:
-        raise AssertionError(f"{what}: out {tuple(got[0].shape)} "
-                             f"{got[0].dtype}")
-    err = (out - ref).abs()
-    if not (err <= 2 ** -7 * ref.abs() + 1e-4 * ref.abs().max()).all():
-        raise AssertionError(f"{what}: out more than one bf16 step from the "
-                             f"plain version (max abs err {err.max()})")
-    # the sums' order moves a few outputs by one step; a lost bf16
-    # rounding in the transforms moves about half of them
-    share = float((got[0] == want[0]).float().mean())
-    if share < WINOGRAD_BITWISE_SHARE:
-        raise AssertionError(f"{what}: only {share:.6f} of the outputs "
-                             "bit-equal to the plain version's")
-    if mode[1] != wg.EPI_NONE:
-        if mode[1] == wg.EPI_STATS:
+    pro, epi = mode
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} outputs, {len(want)} "
+                             "expected")
+    err, share = check_step_close(f"{what} out", got[0], want[0])
+    ref = want[0].float()
+    if epi != wg.EPI_NONE:
+        if epi == wg.EPI_STATS:
             terms = torch.stack([ref.abs().sum((0, 2, 3)),
                                  ref.square().sum((0, 2, 3))])
-        else:  # |g| = |out / inv|
-            g = ref.abs() / kw["scal"][0].abs()[None, :, None, None]
+        else:  # |g|: out / inv, or out3 itself
+            g = want[-1].float().abs() if epi == wg.EPI_BN_ADD else \
+                ref.abs() / kw["scal"][0].abs()[None, :, None, None]
             terms = torch.stack([g.sum((0, 2, 3)), (g * kw["cvals"].float(
             ).abs()).sum((0, 2, 3))])
         if not ((got[1] - want[1]).abs() <= 1e-5 * terms + 1e-6).all():
             raise AssertionError(f"{what}: sums differ by "
                                  f"{(got[1] - want[1]).abs().max()}")
+    aux = 1 + (epi != wg.EPI_NONE)
     if kw["aux"]:
-        check_bitwise(f"{what} aux", got[-1], want[-1])
-    return float(err.max()), share
+        check_bitwise(f"{what} aux", got[aux], want[aux])
+    share3 = None
+    if epi == wg.EPI_BN_ADD:  # out3, the identity's gradient
+        _, share3 = check_step_close(f"{what} out3", got[aux + 1],
+                                     want[aux + 1])
+    return err, share, share3
 
 
 def winograd_cost(mode, n, c, co, h, w):
@@ -638,8 +689,9 @@ def winograd_cost(mode, n, c, co, h, w):
     launch: each input read once, each output written once; the 16
     products; the BT (32 adds per tile and input channel) and AT (24 per
     tile and output channel) transforms, the prologue (3 per input
-    element) and the epilogue (3 per output element for the sums, 6 for
-    the BN mask)."""
+    element, 4 with the identity's add) and the epilogue (3 per output
+    element for the sums, 3 more for the BN mask or the boundary's add
+    and mask)."""
     from yolov3_tensorflow_tpu_torch.ops import winograd as wg
     pro, epi = mode
     x_el, o_el = n * c * h * w, n * co * h * w
@@ -647,104 +699,128 @@ def winograd_cost(mode, n, c, co, h, w):
     nbytes = x_el * 2 + 16 * c * co * 2 + o_el * 2
     ops = tiles * (32 * c + 24 * co)
     if pro != wg.PRO_NONE:  # scalars, the aux write, the partner read
-        nbytes += 2 * c * 4 + x_el * 2 * (2 if pro == wg.PRO_DYEFF else 1)
-        ops += 3 * x_el
+        partner = pro in (wg.PRO_BN_ADD, wg.PRO_DYEFF)
+        nbytes += 2 * c * 4 + x_el * 2 * (2 if partner else 1)
+        ops += (4 if pro == wg.PRO_BN_ADD else 3) * x_el
     if epi != wg.EPI_NONE:  # the sums
         nbytes += 2 * co * 4
         ops += 3 * o_el
-    if epi == wg.EPI_BN_ACT:  # cvals and the scalars
+    if epi in (wg.EPI_BN_ACT, wg.EPI_BN_ADD):  # cvals and the scalars
         nbytes += o_el * 2 + 2 * co * 4
         ops += 3 * o_el
+    if epi == wg.EPI_BN_ADD:  # avals and dvals read, out3 written
+        nbytes += 3 * o_el * 2
     return nbytes, ops, 2 * 16 * tiles * c * co
 
 
 def check_winograd_kernel(device):
     """winograd_call on the card vs winograd_reference on the card in each
-    ported mode, at the flagship chain's shape [128,128,52,52] -> 128 and
+    ported mode, at the flagship chain's two shapes (WINOGRAD_SHAPES) and
     at edge cases (odd H and W with C = Co = 8, a ragged final block of
     tiles with Co below the kernel's channel block, a batch below 32 at the
     chain's width, a wide W); two launches repeat bitwise.  Times each
-    mode at the chain's shape beside its bound and the library's
+    mode at both chain shapes beside its bound and the library's
     convolution (F.conv2d plus the float32 sums for the forward modes,
     torch.nn.grad.conv2d_input for the gradient modes; neither includes
-    the fused prologue or the BN mask).  Returns the records of the four
-    modes on the train path; the plain-conv mode's numbers are printed
-    on a line of their own."""
+    the fused prologue or epilogue).  Returns the records of the six modes
+    on the train paths, each at the chain shape of its path
+    (KERNEL_PATHS, WINOGRAD_PATHS); the plain-conv mode's numbers and the
+    other shape's are printed on lines of their own."""
     import torch
-    import torch.nn.functional as F
 
     from yolov3_tensorflow_tpu_torch.ops import winograd as wg
 
-    cases = [("flagship_chain", WINOGRAD_SHAPE),
-             ("odd_13x11_c8", (2, 8, 8, 13, 11)),
-             ("ragged_tiles_co24", (3, 16, 24, 7, 9)),
-             ("n8_chain_width", (8, 128, 128, 26, 26)),
-             ("wide_w", (1, 8, 72, 6, 200))]
-    errors = {}
+    cases = list(WINOGRAD_SHAPES.items()) + [
+        ("odd_13x11_c8", (2, 8, 8, 13, 11)),
+        ("ragged_tiles_co24", (3, 16, 24, 7, 9)),
+        ("n8_chain_width", (8, 128, 128, 26, 26)),
+        ("wide_w", (1, 8, 72, 6, 200))]
+    records = []
     for i, (name, shape) in enumerate(cases):
         a = winograd_inputs(*shape, device, SEED + 50 + i)
         u = wg.transform_weights(a["w"]).to(torch.bfloat16)
+        errors = {}
         for mode, mode_name in wg.MODES.items():
             kw = winograd_kwargs(mode, a)
             got = wg.winograd_call(a["x"], u, **kw)
             again = wg.winograd_call(a["x"], u, **kw)
             want = wg.winograd_reference(a["x"], u, **kw)
             what = f"winograd_call {mode_name} {name}"
-            err, share = check_winograd_close(what, got, want, mode, kw)
+            err, share, share3 = check_winograd_close(what, got, want, mode,
+                                                      kw)
             for first, second in zip(got, again):
                 check_bitwise(f"{what} repeat", first, second)
-            if name == "flagship_chain":
-                errors[mode_name] = err
+            errors[mode_name] = err
             phase("kernels.winograd_call.case", case=name, mode=mode_name,
-                  shape=shape, max_abs_err=err, bitwise_share=share)
-        del a, u, got, again, want
+                  shape=shape, max_abs_err=err, bitwise_share=share,
+                  out3_bitwise_share=share3)
+        del got, again, want
+        if name in WINOGRAD_SHAPES:
+            records += time_winograd_modes(name, a, u, errors)
+        del a, u
+        free_card()
+    return records
 
-    n, c, co, h, w = WINOGRAD_SHAPE
-    a = winograd_inputs(*WINOGRAD_SHAPE, device, SEED)
-    u = wg.transform_weights(a["w"]).to(torch.bfloat16)
+
+def time_winograd_modes(shape_name, a, u, errors):
+    """Each mode's kernel, plain version and library call timed on case
+    ``a`` at the chain shape ``shape_name``; returns the records of the
+    modes whose record reports this shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+    shape = WINOGRAD_SHAPES[shape_name]
+    n, c, co, h, w = shape
+    records = []
     w_fwd = a["w"].flip(2, 3).transpose(0, 1)  # the conv whose dx it is
 
     def conv_and_sums():
         y = F.conv2d(a["x"], a["w"], padding=1)
         yf = y.float()
-        return y, torch.stack([yf.sum((0, 2, 3)), yf.square().sum((0, 2, 3))])
+        return y, torch.stack([yf.sum((0, 2, 3)),
+                               yf.square().sum((0, 2, 3))])
 
     def conv_input_grad():
         return torch.nn.grad.conv2d_input((n, co, h, w), w_fwd, a["x"],
                                           padding=1)
 
-    library = {"conv": lambda: F.conv2d(a["x"], a["w"], padding=1),
-               "conv_stats": conv_and_sums, "bn_act_conv_stats":
-               conv_and_sums, "dyeff_conv": conv_input_grad,
-               "dyeff_conv_bn_act": conv_input_grad}
-    records = []
+    def library(mode_name):
+        if mode_name == "conv":
+            return lambda: F.conv2d(a["x"], a["w"], padding=1)
+        if mode_name.startswith("dyeff"):
+            return conv_input_grad
+        return conv_and_sums
+
     for mode, mode_name in wg.MODES.items():
         kw = winograd_kwargs(mode, a)
-        nbytes, ops, tensor_ops = winograd_cost(mode, *WINOGRAD_SHAPE)
+        nbytes, ops, tensor_ops = winograd_cost(mode, *shape)
         bound_ms, bound_by = bound(nbytes, ops, tensor_ops)
-        kernel_ms = cuda_time_ms(lambda: wg.winograd_call(a["x"], u, **kw))
-        plain_ms = cuda_time_ms(lambda: wg.winograd_reference(a["x"], u,
-                                                              **kw), iters=3)
-        library_ms = cuda_time_ms(library[mode_name])
-        record = {
-            "name": f"winograd_call.{mode_name}", "route": "cuda",
-            "source": "yolov3_tensorflow_tpu_torch/ops/csrc/winograd.cu",
-            "replaces": "yolov3_tensorflow_tpu/ops/winograd.py:429",
-            "max_abs_err": errors[mode_name], "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-        }
-        phase(f"kernels.winograd_call.{mode_name}",
-              shape=list(WINOGRAD_SHAPE), bytes=nbytes, ops=ops,
+        kernel_ms = cuda_time_ms(
+            lambda: wg.winograd_call(a["x"], u, **kw))
+        plain_ms = cuda_time_ms(
+            lambda: wg.winograd_reference(a["x"], u, **kw), iters=3)
+        library_ms = cuda_time_ms(library(mode_name))
+        err = errors[mode_name]
+        phase(f"kernels.winograd_call.{mode_name}", case=shape_name,
+              shape=list(shape), bytes=nbytes, ops=ops,
               tensor_ops=tensor_ops, ms=kernel_ms, bound_ms=bound_ms,
-              bound_by=bound_by, plain_ms=plain_ms, library_ms=library_ms,
-              max_abs_err=errors[mode_name],
+              bound_by=bound_by, plain_ms=plain_ms,
+              library_ms=library_ms, max_abs_err=err,
               tflop_per_s=tensor_ops / kernel_ms / 1e9,
               gbytes_per_s=nbytes / kernel_ms / 1e6)
-        if f"winograd_call.{mode_name}" in KERNEL_PATHS:
-            records.append(record)
-    del a, u
-    free_card()
+        name = f"winograd_call.{mode_name}"
+        if name in KERNEL_PATHS and \
+                WINOGRAD_PATHS[KERNEL_PATHS[name]][1] == shape_name:
+            records.append({
+                "name": name, "route": "cuda",
+                "source": "yolov3_tensorflow_tpu_torch/ops/csrc/"
+                          "winograd.cu",
+                "replaces": "yolov3_tensorflow_tpu/ops/winograd.py:429",
+                "max_abs_err": err, "ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+            })
     return records
 
 
@@ -1042,25 +1118,27 @@ def train_v2(device, gpu):
     return run["launches"]
 
 
-def train_winograd(device, gpu):
-    """The flagship train step at conv_backend="winograd": the descent
-    check, then the timed run with augment_backend "auto", which must
-    launch each of the chain's four Winograd modes once per step (and the
-    plain-conv mode never).  Returns its launch counts."""
-    name = "train.resnet-18.winograd"
+def train_winograd(device, gpu, name):
+    """The flagship train step at conv_backend="winograd" on the Winograd
+    path ``name`` of WINOGRAD_PATHS: the descent check, then the timed run
+    with augment_backend "auto", which must launch each Winograd mode the
+    path's number of times per step, and no other mode (the plain conv
+    never).  Returns its launch counts."""
+    min_channels, _, per_step = WINOGRAD_PATHS[name]
+    cfg_kw = dict(conv_backend="winograd",
+                  winograd_min_channels=min_channels)
     images, labels = train_batch(device)
-    descent(FLAGSHIP, device, images, labels, name=name,
-            conv_backend="winograd")
+    descent(FLAGSHIP, device, images, labels, name=name, **cfg_kw)
     run = timed_steps(FLAGSHIP, "auto", device, images, labels, gpu,
-                      name=name, conv_backend="winograd")
+                      name=name, **cfg_kw)
     launches = run["launches"]
     steps = WARMUP_STEPS + TIMED_STEPS
-    chain = [k for k, path in KERNEL_PATHS.items() if path == name]
-    counts = {k: launches[k] for k in chain + ["winograd_call.conv"]}
-    if [counts[k] for k in chain] != [steps] * len(chain) \
-            or counts["winograd_call.conv"]:
+    counts = {k: v for k, v in launches.items()
+              if k.startswith("winograd_call.")}
+    want = {k: per_step.get(k.split(".", 1)[1], 0) * steps for k in counts}
+    if counts != want:
         raise AssertionError(f"{name}: Winograd launches {counts}, "
-                             f"{steps} of each chain mode expected")
+                             f"{want} expected")
     require_launches(name, launches, ("bn_pool_relu_fwd", "bn_pool_relu_bwd",
                                       "noisy_normalize"))
     return launches
@@ -1120,8 +1198,9 @@ def main() -> int:
                                                   ("max_pool_s2_eval",))
     with timed("train.resnet-18-v2"):
         paths["train.resnet-18-v2"] = train_v2(device, gpu)
-    with timed("train.resnet-18.winograd"):
-        paths["train.resnet-18.winograd"] = train_winograd(device, gpu)
+    for name in WINOGRAD_PATHS:
+        with timed(name):
+            paths[name] = train_winograd(device, gpu, name)
     for r in records:
         r["launches"] = paths[KERNEL_PATHS[r["name"]]][r["name"]]
     phase("seconds", phase="total",

@@ -10,9 +10,10 @@ Tolerance: none for the stem and noise kernels.  Every such output
 must be bitwise equal to its plain version's on the same inputs, NaN
 included.  The Winograd kernel sums its products on the tensor cores in
 another order than the plain version's float32 product, so its bf16
-outputs are held to one bf16 step (|k - p| <= 2^-7 |p| + 1e-4 max|p|),
-its per-channel sums to 1e-5 of their terms' summed magnitudes, and its
-aux output bitwise.
+outputs (out, and out3 of EPI_BN_ADD) are held to one bf16 step (|k - p|
+<= 2^-7 |p| + 1e-4 max|p|) with at least 99.9% of them bitwise, its
+per-channel sums to 1e-5 of their terms' summed magnitudes, and its aux
+output bitwise.
 """
 import numpy as np
 import pytest
@@ -254,41 +255,61 @@ def winograd_case(n, c, co, h, w, seed):
         scal_co=dev([rng.rand(co) + 0.5, rng.randn(co) * 0.2],
                     torch.float32),
         scal2=dev([rng.randn(c) * 1e-3, rng.randn(c) * 1e-4],
-                  torch.float32))
+                  torch.float32),
+        # a boundary activation (zero where it was cut) and its cotangent
+        avals=dev(np.maximum(rng.randn(n, co, h, w), 0)),
+        dvals=dev(rng.randn(n, co, h, w)))
 
 
 def winograd_args(mode, a):
     pro, epi = mode
     kw = dict(pro=pro, epi=epi, aux=pro != wg.PRO_NONE)
-    if pro == wg.PRO_BN_ACT:
+    if pro in (wg.PRO_BN_ACT, wg.PRO_BN_ADD):
         kw["scal"] = a["scal_c"]
+    if pro in (wg.PRO_BN_ADD, wg.PRO_DYEFF):  # the identity, or y
+        kw["partner"] = a["y"]
     if pro == wg.PRO_DYEFF:
-        kw.update(partner=a["y"], scal2=a["scal2"])
-    if epi == wg.EPI_BN_ACT:
+        kw["scal2"] = a["scal2"]
+    if epi in (wg.EPI_BN_ACT, wg.EPI_BN_ADD):
         kw.update(cvals=a["cvals"], scal=a["scal_co"])
+    if epi == wg.EPI_BN_ADD:
+        kw.update(avals=a["avals"], dvals=a["dvals"])
     return kw
 
 
-def assert_winograd_close(got, want, mode, kw):
-    out, ref = got[0].float(), want[0].float()
-    assert got[0].shape == want[0].shape and got[0].dtype == torch.bfloat16
+def assert_step_close(got, want):
+    """bf16 ``got`` within one bf16 step of ``want``, and at least
+    WINOGRAD_BITWISE_SHARE of it bitwise."""
+    out, ref = got.float(), want.float()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
     bound = 2 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
     assert ((out - ref).abs() <= bound).all()
     # the sums' order moves a few outputs by one step; a lost bf16
     # rounding in the transforms moves about half of them
-    assert (got[0] == want[0]).float().mean() >= WINOGRAD_BITWISE_SHARE
-    if mode[1] != wg.EPI_NONE:
-        if mode[1] == wg.EPI_STATS:
+    assert (got == want).float().mean() >= WINOGRAD_BITWISE_SHARE
+
+
+def assert_winograd_close(got, want, mode, kw):
+    pro, epi = mode
+    assert len(got) == len(want)
+    assert_step_close(got[0], want[0])
+    ref = want[0].float()
+    if epi != wg.EPI_NONE:
+        if epi == wg.EPI_STATS:
             terms = torch.stack([ref.abs().sum((0, 2, 3)),
                                  ref.square().sum((0, 2, 3))])
-        else:
-            g = ref.abs() / kw["scal"][0].abs()[None, :, None, None]
+        else:  # |g|: out / inv, or out3 itself
+            g = want[-1].float().abs() if epi == wg.EPI_BN_ADD else \
+                ref.abs() / kw["scal"][0].abs()[None, :, None, None]
             terms = torch.stack([
                 g.sum((0, 2, 3)),
                 (g * kw["cvals"].float().abs()).sum((0, 2, 3))])
         assert ((got[1] - want[1]).abs() <= 1e-5 * terms + 1e-6).all()
+    aux = 1 + (epi != wg.EPI_NONE)
     if kw["aux"]:
-        assert_bitwise(got[-1], want[-1])
+        assert_bitwise(got[aux], want[aux])
+    if epi == wg.EPI_BN_ADD:  # out3, the identity's gradient
+        assert_step_close(got[aux + 1], want[aux + 1])
 
 
 @pytest.mark.gpu
@@ -342,6 +363,36 @@ def test_winograd_autograd_ops_run_the_kernels():
 
 
 @pytest.mark.gpu
+def test_winograd_residual_op_runs_the_kernels():
+    """hconv_bn_add_act_stats forward and backward launch their two modes
+    once each, and give the plain versions' values and gradients on the
+    card, with a cotangent on every output."""
+    need_gpu()
+    a = winograd_case(4, 16, 16, 9, 10, seed=11)
+    launches = {m: k.launches for m, k in wg.KERNELS.items()}
+    results = []
+    for device in ("cuda", "cpu"):
+        x, ident, w, inv, shift = (
+            t.detach().to(device).requires_grad_() for t in
+            (a["x"], a["y"], a["w"], *a["scal_c"]))
+        y, act, s, q = wg.hconv_bn_add_act_stats(x, ident, w, inv, shift)
+        loss = (y.float().square().mean() + act.float().mean()
+                + s.sum() * 1e-3 + q.sum() * 1e-5)
+        loss.backward()
+        results.append([t.detach().float().cpu() for t in
+                        (y, act, s, q, x.grad, ident.grad, w.grad, inv.grad,
+                         shift.grad)])
+    torch.cuda.synchronize()
+    for name in ("bn_add_conv_stats", "dyeff_conv_bn_add"):
+        assert wg.KERNELS[name].launches == launches[name] + 1, name
+    assert torch.equal(results[0][1], results[1][1])  # a: bitwise
+    for got, want in zip(*results):
+        scale = want.abs().max() + 1e-6
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() / scale <= 0.05
+
+
+@pytest.mark.gpu
 def test_winograd_kernel_rejects_bad_operands():
     need_gpu()
     x = torch.zeros(1, 8, 4, 4, dtype=torch.bfloat16, device="cuda")
@@ -354,3 +405,10 @@ def test_winograd_kernel_rejects_bad_operands():
     with pytest.raises(ValueError, match="cvals must be"):
         wg.winograd_call(x, u, partner=x, scal=scal, scal2=scal,
                          pro=wg.PRO_DYEFF, epi=wg.EPI_BN_ACT)
+    with pytest.raises(ValueError, match="partner must be"):
+        wg.winograd_call(x, u, scal=scal, pro=wg.PRO_BN_ADD,
+                         epi=wg.EPI_STATS, aux=True)
+    with pytest.raises(ValueError, match="avals must be"):
+        wg.winograd_call(x, u, partner=x, cvals=x, dvals=x, scal=scal,
+                         scal2=scal, pro=wg.PRO_DYEFF, epi=wg.EPI_BN_ADD,
+                         aux=True)

@@ -63,18 +63,34 @@ def tiny_cfg(**kw):
                   **kw)
 
 
-def test_winograd_conv_backend_raises_in_training():
-    """The Winograd chain's module-1 blocks (winograd_min_channels=64)
-    need the residual-boundary kernel modes, which are not ported: a train
-    forward raises and names them, never running the direct conv instead.
-    Eval runs direct convolution, as in the JAX package."""
+def test_winograd_conv_backend_raises_in_training(monkeypatch):
+    """At winograd_min_channels=64 a train step runs module 1's chain: its
+    second block's first conv through the residual-boundary modes
+    (PRO_BN_ADD forward, PRO_DYEFF + EPI_BN_ADD gradient), with nothing
+    raised.  Eval runs direct convolution, as in the JAX package; an
+    unknown backend raises."""
     from yolov3_tensorflow_tpu_torch.models.detector import build_detector
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+    calls = []
+    original = wg.winograd_call
+
+    def record(x, u, *args, **kw):
+        calls.append((kw.get("pro"), kw.get("epi")))
+        return original(x, u, *args, **kw)
+
+    monkeypatch.setattr(wg, "winograd_call", record)
     cfg = tiny_cfg(conv_backend="winograd", winograd_min_channels=64)
     model = build_detector(cfg, "cpu").train()
-    with pytest.raises(NotImplementedError,
-                       match="hconv_bn_add_act_stats.*ROADMAP"):
-        model(torch.zeros(2, 3, 64, 64))
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(0))
+    heads = model(x)
+    sum(h.sum() for h in heads).backward()
+    assert calls.count((wg.PRO_BN_ADD, wg.EPI_STATS)) == 1
+    assert calls.count((wg.PRO_DYEFF, wg.EPI_BN_ADD)) == 1
+    assert len(calls) == 12
+    assert all(torch.isfinite(h).all() for h in heads)
+    calls.clear()
     assert model.eval()(torch.zeros(1, 3, 64, 64))[0].shape[0] == 1
+    assert calls == []
     with pytest.raises(ValueError, match="unknown conv_backend"):
         build_detector(tiny_cfg(conv_backend="im2col"), "cpu")
 
@@ -200,8 +216,9 @@ def winograd_call_on_meta(mode):
     u = torch.empty(16, 8, 8, dtype=torch.bfloat16, device="meta")
     scal = torch.empty(2, 8, device="meta")
     pro, epi = mode
-    return wg.winograd_call(x, u, partner=x, cvals=x, scal=scal, scal2=scal,
-                            pro=pro, epi=epi, aux=pro != wg.PRO_NONE)
+    return wg.winograd_call(x, u, partner=x, cvals=x, avals=x, dvals=x,
+                            scal=scal, scal2=scal, pro=pro, epi=epi,
+                            aux=pro != wg.PRO_NONE)
 
 
 def winograd_modes():

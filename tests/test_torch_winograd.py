@@ -11,11 +11,12 @@ With the rounding kept, the port's plain version gives the JAX kernel's
 bits.
 
 Tolerances:
-  * outputs and aux of the kernel op bitwise equal in each ported mode
-    (tests/test_winograd.py allows 0.03 of scale against direct conv);
-  * the per-channel sums (EPI_STATS, EPI_BN_ACT) within 1e-3 of the sum
-    of the absolute values of their terms (float32 sums in another
-    order);
+  * outputs, aux and out3 (the identity's gradient of EPI_BN_ADD) of the
+    kernel op bitwise equal in each ported mode (tests/test_winograd.py
+    allows 0.03 of scale against direct conv);
+  * the per-channel sums (EPI_STATS, EPI_BN_ACT, EPI_BN_ADD) within 1e-3
+    of the sum of the absolute values of their terms (float32 sums in
+    another order);
   * the autograd ops' outputs within 1e-2 of their max-abs scale, their
     sums as above, every gradient within 0.05 of scale; conv3x3 against
     direct convolution within 0.03 (output) and 0.05 (gradients) of
@@ -80,7 +81,10 @@ def mode_inputs(shape, seed):
         scal_co=np.stack([rng.rand(co) + 0.5, rng.randn(co) * 0.2]).astype(
             np.float32),
         scal2=np.stack([rng.randn(c) * 0.1, rng.randn(c) * 0.05]).astype(
-            np.float32))
+            np.float32),
+        # a boundary activation (zero where it was cut) and its cotangent
+        avals=np.maximum(rng.randn(n, co, h, w), 0).astype(np.float32),
+        dvals=rng.randn(n, co, h, w).astype(np.float32))
 
 
 def strict(fn, *args):
@@ -92,11 +96,12 @@ def strict(fn, *args):
 def sum_terms(out, mode, cvals, inv):
     """Per channel, the summed magnitudes of the two sums' terms, from the
     bf16 output: |o| and o^2 (EPI_STATS); |g| and |g c| with g = out/inv
-    (EPI_BN_ACT)."""
+    (EPI_BN_ACT), or g = out3 given as ``out`` with ``inv`` None
+    (EPI_BN_ADD)."""
     o = out.astype(np.float64)
     if mode[1] == pw.EPI_STATS:
         return np.stack([np.abs(o).sum((0, 2, 3)), (o * o).sum((0, 2, 3))])
-    g = np.abs(o / inv[None, :, None, None])
+    g = np.abs(o if inv is None else o / inv[None, :, None, None])
     return np.stack([g.sum((0, 2, 3)), (g * np.abs(cvals)).sum((0, 2, 3))])
 
 
@@ -109,17 +114,22 @@ def mode_case(mode, shape, seed):
     port = dict(x=bf16(a["x"]), u=u, pro=pro, epi=epi,
                 aux=pro != pw.PRO_NONE)
     jax_kw = {}
-    if pro == pw.PRO_BN_ACT:
+    if pro in (pw.PRO_BN_ACT, pw.PRO_BN_ADD):
         port["scal"] = torch.tensor(a["scal_c"])
         jax_kw["scal"] = jnp.asarray(a["scal_c"])[:, :, None]
+    if pro in (pw.PRO_BN_ADD, pw.PRO_DYEFF):  # the identity, or y
+        port["partner"] = bf16(a["y"])
+        jax_kw["partner"] = hwcn(a["y"])
     if pro == pw.PRO_DYEFF:
-        port.update(partner=bf16(a["y"]), scal2=torch.tensor(a["scal2"]))
-        jax_kw.update(partner=hwcn(a["y"]),
-                      scal2=jnp.asarray(a["scal2"])[:, :, None])
-    if epi == pw.EPI_BN_ACT:
+        port["scal2"] = torch.tensor(a["scal2"])
+        jax_kw["scal2"] = jnp.asarray(a["scal2"])[:, :, None]
+    if epi in (pw.EPI_BN_ACT, pw.EPI_BN_ADD):
         port.update(cvals=bf16(a["cvals"]), scal=torch.tensor(a["scal_co"]))
         jax_kw.update(cvals=hwcn(a["cvals"]),
                       scal=jnp.asarray(a["scal_co"])[:, :, None])
+    if epi == pw.EPI_BN_ADD:
+        port.update(avals=bf16(a["avals"]), dvals=bf16(a["dvals"]))
+        jax_kw.update(avals=hwcn(a["avals"]), dvals=hwcn(a["dvals"]))
     jax_args = (hwcn(a["x"]), jnp.asarray(f32(u), jnp.bfloat16)) + tuple(
         jax_kw.get(k) for k in ("partner", "cvals", "avals", "dvals",
                                 "scal", "scal2"))
@@ -159,16 +169,26 @@ def kernel_cases():
 @pytest.mark.parametrize("mode", list(pw.MODES), ids=list(pw.MODES.values()))
 def test_plain_version_matches_jax_kernel(kernel_cases, mode):
     """winograd_call on CPU tensors (the plain version) against the JAX
-    kernel in each ported mode: output, sums and aux."""
+    kernel in each ported mode: output, sums, aux and out3, in JAX's
+    order."""
     got, want, a = kernel_cases[(mode, MODE_SHAPE, 0)]
-    assert len(got) == len(want)
+    pro, epi = mode
+    assert len(got) == len(want) == 1 + (epi != pw.EPI_NONE) + (
+        pro != pw.PRO_NONE) + (epi == pw.EPI_BN_ADD)
     assert got[0].shape == (MODE_SHAPE[0], MODE_SHAPE[4]) + MODE_SHAPE[1:3]
     np.testing.assert_array_equal(got[0], want[0])
-    if mode[1] != pw.EPI_NONE:
-        terms = sum_terms(want[0], mode, a["cvals"], a["scal_co"][0])
+    if epi != pw.EPI_NONE:
+        if epi == pw.EPI_BN_ADD:  # g itself is out3
+            terms = sum_terms(want[-1], mode, a["cvals"], None)
+        else:
+            terms = sum_terms(want[0], mode, a["cvals"], a["scal_co"][0])
         assert_sums(got[1], want[1], terms, "sums")
-    if mode[0] != pw.PRO_NONE:
-        np.testing.assert_array_equal(got[-1], want[-1])
+    aux = 1 + (epi != pw.EPI_NONE)
+    if pro != pw.PRO_NONE:
+        np.testing.assert_array_equal(got[aux], want[aux])
+    if epi == pw.EPI_BN_ADD:
+        np.testing.assert_array_equal(got[aux + 1], want[aux + 1])
+        assert (got[aux + 1] != 0).any() and (got[aux + 1] == 0).any()
 
 
 @pytest.mark.parametrize("shape", SHAPE_CASES, ids=str)
@@ -183,12 +203,15 @@ def test_conv_stats_matches_jax_kernel(kernel_cases, shape):
 
 
 def test_unported_modes_raise():
+    """The (prologue, epilogue) pairs that the JAX package never calls are
+    no mode of the kernel: they raise, on the CPU as on a device."""
     x = torch.zeros(1, 8, 4, 4, dtype=torch.bfloat16)
     u = torch.zeros(16, 8, 8, dtype=torch.bfloat16)
-    for pro, epi in ((pw.PRO_BN_ADD, pw.EPI_STATS),
-                     (pw.PRO_DYEFF, pw.EPI_BN_ADD),
-                     (pw.PRO_BN_ACT, pw.EPI_BN_ACT)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    pairs = [(pro, epi) for pro in range(4) for epi in range(4)
+             if (pro, epi) not in pw.MODES]
+    assert len(pairs) == 9 and (pw.PRO_BN_ACT, pw.EPI_BN_ACT) in pairs
+    for pro, epi in pairs:
+        with pytest.raises(NotImplementedError, match="not a mode"):
             pw.winograd_call(x, u, pro=pro, epi=epi)
 
 

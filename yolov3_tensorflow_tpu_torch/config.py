@@ -281,9 +281,10 @@ class Config:
     # on the card) where the JAX package's shape rules admit a block;
     # eval always runs direct convolution, in both packages.
     conv_backend: str = "xla"
-    # Winograd chain channel floor (train-only, see conv_backend).  Below
-    # 128 module 1's chain engages, whose residual-boundary kernel modes
-    # are not ported: a train forward then raises.
+    # Winograd chain channel floor (train-only, see conv_backend): a conv
+    # joins the chain only where both its channel counts reach it.  At 64
+    # module 1's blocks join, the second through the residual-boundary
+    # modes (hconv_bn_add_act_stats).
     winograd_min_channels: int = 128
     # grouped-conv algorithm for resnext-18 (not yet ported).
     grouped_backend: str = "auto"  # auto | grouped | dense

@@ -43,7 +43,8 @@ from torch import nn
 from ..ops.stem_pool import (bn_pool_relu, bn_pool_relu_eval,
                               bn_pool_relu_eval_reference, max_pool_s2,
                               max_pool_s2_eval, same_pool_geometry)
-from ..ops.winograd import eligible, hconv_bn_act_stats, hconv_stats
+from ..ops.winograd import (eligible, hconv_bn_act_stats,
+                            hconv_bn_add_act_stats, hconv_stats)
 
 L2_CONV_DECAY = 5.0e-4  # conv kernel weight decay (basic_backbone.py:11)
 BN_L2_GAMMA_DECAY = 1.0e-5  # BN gamma weight decay (basic_backbone.py:12)
@@ -296,12 +297,17 @@ class BasicBackbone(nn.Module):
         Winograd path?  Train only."""
         return self.chain_ok(x.shape, conv, x.device.type)
 
-    def fused_conv_stats(self, x, conv: Conv2dSame, prologue=None):
+    def fused_conv_stats(self, x, conv: Conv2dSame, prologue=None,
+                         ident=None):
         """``conv`` on the Winograd kernel, returning (y_raw, sum,
         sumsq): with ``prologue=(inv, shift)`` the previous BatchNorm's
-        apply + relu ride the conv's input read (JAX ``fused_conv_stats``
-        with ``WinogradConv3x3``)."""
+        apply + relu ride the conv's input read; with ``ident`` as well,
+        the previous residual boundary (apply + add + relu) rides it and
+        the boundary activation ``a`` comes back too, as (y_raw, a, sum,
+        sumsq) (JAX ``fused_conv_stats`` with ``WinogradConv3x3``)."""
         w = conv.weight.to(self.dtype)
+        if ident is not None:
+            return hconv_bn_add_act_stats(x, ident, w, *prologue)
         if prologue is None:
             return hconv_stats(x, w)
         return hconv_bn_act_stats(x, w, *prologue)

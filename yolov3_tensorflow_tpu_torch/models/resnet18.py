@@ -14,12 +14,14 @@ the block's two 3x3 convs on the Winograd kernel, each with its output's
 BatchNorm statistics from the epilogue, the first BatchNorm's apply +
 relu riding the second conv's input read, and the block's own apply +
 add + relu deferred as the chain state ``("def", y_raw, identity, inv,
-shift)`` until a module boundary materializes it.  At the default
-``winograd_min_channels=128`` that is module 2's second block alone
-(module 1 is below the floor, modules 3-4 outside the kernel's shape
-rules, every first block strided).  A chain block that would start from a
-deferred state needs the residual-boundary prologue of
-``hconv_bn_add_act_stats``, which is not ported: it raises.  Every other
+shift)``.  A chain block that starts from a deferred state takes it on
+its first conv's read (``hconv_bn_add_act_stats``), whose boundary
+activation is the block's identity (or the NIN projection's input); a
+block outside the rules, and each module's end, materializes it.  At the
+default ``winograd_min_channels=128`` the chain is module 2's second
+block alone (module 1 is below the floor, modules 3-4 outside the
+kernel's shape rules, every first block strided); at 64 module 1's two
+blocks join it, the second from the first's deferred state.  Every other
 block is the classic NCHW block.
 """
 from __future__ import annotations
@@ -76,18 +78,18 @@ class ResNet18(BasicBackbone):
         if not self.chain_ok(x.shape, conv1, x.device.type):
             return ("mat", self._apply_block(self._materialize(state),
                                              block))
-        if state[0] == "def":
-            raise NotImplementedError(
-                "a Winograd chain block after a deferred residual boundary "
-                "needs the PRO_BN_ADD/EPI_BN_ADD kernel modes "
-                "(hconv_bn_add_act_stats), which are not ported yet (ROADMAP "
-                "Queue 2); raise winograd_min_channels to 128")
-        y1, total1, sq1 = self.fused_conv_stats(x, conv1)
+        if state[0] == "mat":
+            a_prev = x
+            y1, total1, sq1 = self.fused_conv_stats(x, conv1)
+        else:  # the previous block's boundary rides this conv's read
+            _, y_prev, ident_prev, inv_p, shift_p = state
+            y1, a_prev, total1, sq1 = self.fused_conv_stats(
+                y_prev, conv1, prologue=(inv_p, shift_p), ident=ident_prev)
         inv1, shift1 = bn1.stats_scalars(total1, sq1, count_per_channel(y1))
         y2, total2, sq2 = self.fused_conv_stats(y1, conv2,
                                                 prologue=(inv1, shift1))
         inv2, shift2 = bn2.stats_scalars(total2, sq2, count_per_channel(y2))
-        ident = self.conv_bn(x, nin) if nin is not None else x
+        ident = self.conv_bn(a_prev, nin) if nin is not None else a_prev
         return ("def", y2, ident, inv2, shift2)
 
     def _chain_module(self, state, stage):

@@ -3,19 +3,23 @@
 // flagship's train chain.
 //
 // Replaces the TPU kernel of yolov3_tensorflow_tpu/ops/winograd.py
-// (winograd_call -> _kernel) in five (prologue, epilogue) modes:
-// PRO_NONE + EPI_NONE (conv3x3), PRO_NONE + EPI_STATS (hconv_stats),
-// PRO_BN_ACT + EPI_STATS with the aux write (hconv_bn_act_stats),
-// PRO_DYEFF + EPI_NONE and PRO_DYEFF + EPI_BN_ACT with the aux write
-// (their input gradients).  PRO_BN_ADD / EPI_BN_ADD are not ported.
+// (winograd_call -> _kernel) in the seven (prologue, epilogue) modes the
+// JAX package calls: PRO_NONE + EPI_NONE (conv3x3), PRO_NONE + EPI_STATS
+// (hconv_stats), PRO_BN_ACT + EPI_STATS and PRO_BN_ADD + EPI_STATS with
+// the aux write (hconv_bn_act_stats, hconv_bn_add_act_stats), PRO_DYEFF +
+// EPI_NONE, PRO_DYEFF + EPI_BN_ACT and PRO_DYEFF + EPI_BN_ADD with the aux
+// write (their input gradients).
 //
-// What bounds it on an H100: bytes.  At the flagship's chain shape
+// What bounds it on an H100: bytes.  At module 2's chain shape
 // [128, 128, 52, 52] -> 128 one activation tensor is 88.6 MB, 26 us at
 // 3.35 TB/s; the products (16 * tiles * C * Co * 2 = 4.5e10 FLOP) take
 // 46 us at the bf16 tensor-core peak, and the float32 transforms and
 // epilogues 9-15 us on the float32 units, which work beside the tensor
 // cores.  So every mode is bound by its bytes: 53 us for the modes that
 // move two tensors, 79, 106 and 132 us for those that move three to five.
+// Module 1's [128, 64, 104, 104] -> 64 has twice the bytes for the same
+// products: 106 us for two tensors, up to 423 us for the eight of
+// PRO_DYEFF + EPI_BN_ADD (dy, y, x, a, da_ext in; out, dye, out3 out).
 // Design, simple and right first (not the TPU's block structure):
 //   * a block owns kTiles 2x2 output tiles (consecutive in (n, tile row,
 //     tile column) order) and kCoBlock output channels, and loops over
@@ -45,6 +49,9 @@
 //   * PRO_BN_ACT: z = relu(bf16(bf16(x * bf16(inv)) + bf16(shift))), each
 //     op in f32 with __fmul_rn / __fadd_rn (no FMA contraction), relu as
 //     max(0, z) with NaN kept (jnp.maximum);
+//   * PRO_BN_ADD: z = relu(bf16(bf16(bf16(x * bf16(inv)) + bf16(shift))
+//     + id)), the identity id read at the same positions as x (the
+//     residual boundary: the apply, then the add, then the relu);
 //   * PRO_DYEFF: z = bf16((dy + ds) + (2 * dq) * y), f32 ops;
 //   * BT rows then columns, each add rounded to bf16; AT rows then
 //     columns in f32; one bf16 rounding on the store
@@ -52,7 +59,9 @@
 //     conversion does);
 //   * EPI_STATS: (sum o, sum o*o); EPI_BN_ACT: g = o where
 //     bf16(bf16(c * bf16(inv)) + bf16(shift)) > 0 else 0, (sum g,
-//     sum g*c), output g * inv.
+//     sum g*c), output g * inv; EPI_BN_ADD: g = o + d where the boundary
+//     activation a > 0 else 0 (d its cotangent), (sum g, sum g*c), output
+//     g * inv and out3 = g.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -63,8 +72,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
-constexpr int PRO_NONE = 0, PRO_BN_ACT = 1, PRO_DYEFF = 3;
-constexpr int EPI_NONE = 0, EPI_STATS = 1, EPI_BN_ACT = 2;
+constexpr int PRO_NONE = 0, PRO_BN_ACT = 1, PRO_BN_ADD = 2, PRO_DYEFF = 3;
+constexpr int EPI_NONE = 0, EPI_STATS = 1, EPI_BN_ACT = 2, EPI_BN_ADD = 3;
 
 constexpr int kTiles = 32;      // output tiles per block (the GEMM's M)
 constexpr int kCoBlock = 64;    // output channels per block (N)
@@ -96,8 +105,9 @@ template <int PRO, int EPI>
 __global__ void __launch_bounds__(kThreads, 1) winograd_f2x3_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ partner,
     const bf16* __restrict__ u, const bf16* __restrict__ cvals,
+    const bf16* __restrict__ avals, const bf16* __restrict__ dvals,
     const float* __restrict__ scal, const float* __restrict__ scal2,
-    bf16* __restrict__ out, bf16* __restrict__ aux,
+    bf16* __restrict__ out, bf16* __restrict__ aux, bf16* __restrict__ out3,
     float* __restrict__ partial, int C, int Co, int H, int W, int TH,
     int TW, int P) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -139,7 +149,7 @@ __global__ void __launch_bounds__(kThreads, 1) winograd_f2x3_kernel(
       if (tile_ok && c < C) {
         const int64_t base = ((int64_t)n * C + c) * plane;
         float inv_b = 0.0f, shift_b = 0.0f, ds = 0.0f, dq2 = 0.0f;
-        if (PRO == PRO_BN_ACT) {
+        if (PRO == PRO_BN_ACT || PRO == PRO_BN_ADD) {
           inv_b = bf16_round(scal[c]);
           shift_b = bf16_round(scal[C + c]);
         } else if (PRO == PRO_DYEFF) {
@@ -159,6 +169,11 @@ __global__ void __launch_bounds__(kThreads, 1) winograd_f2x3_kernel(
               if (PRO == PRO_BN_ACT) {
                 v = bf16_round(__fmul_rn(v, inv_b));
                 v = relu_keep_nan(bf16_round(__fadd_rn(v, shift_b)));
+              } else if (PRO == PRO_BN_ADD) {
+                const float id = __bfloat162float(partner[at]);
+                v = bf16_round(__fmul_rn(v, inv_b));
+                v = bf16_round(__fadd_rn(v, shift_b));
+                v = relu_keep_nan(bf16_round(__fadd_rn(v, id)));
               } else if (PRO == PRO_DYEFF) {
                 const float y = __bfloat162float(partner[at]);
                 v = bf16_round(__fadd_rn(__fadd_rn(v, ds), __fmul_rn(dq2, y)));
@@ -264,8 +279,8 @@ __global__ void __launch_bounds__(kThreads, 1) winograd_f2x3_kernel(
       o[1][1] = (r1[1] - r1[2]) - r1[3];
       const int64_t base = ((int64_t)n * Co + co) * plane;
       float minv = 0.0f, minv_b = 0.0f, mshift_b = 0.0f;
+      if (EPI == EPI_BN_ACT || EPI == EPI_BN_ADD) minv = scal[co];
       if (EPI == EPI_BN_ACT) {
-        minv = scal[co];
         minv_b = bf16_round(minv);
         mshift_b = bf16_round(scal[Co + co]);
       }
@@ -290,6 +305,17 @@ __global__ void __launch_bounds__(kThreads, 1) winograd_f2x3_kernel(
             const float g = bn > 0.0f ? v : 0.0f;
             s0 = __fadd_rn(s0, g);
             s1 = __fadd_rn(s1, __fmul_rn(g, cv));
+            v = __fmul_rn(g, minv);
+          } else if (EPI == EPI_BN_ADD) {
+            // a was written by the forward's prologue: a > 0 exactly where
+            // the boundary's pre-activation is
+            const float cv = __bfloat162float(cvals[at]);
+            const float g = __bfloat162float(avals[at]) > 0.0f
+                                ? __fadd_rn(v, __bfloat162float(dvals[at]))
+                                : 0.0f;
+            s0 = __fadd_rn(s0, g);
+            s1 = __fadd_rn(s1, __fmul_rn(g, cv));
+            out3[at] = __float2bfloat16_rn(g);
             v = __fmul_rn(g, minv);
           }
           out[at] = __float2bfloat16_rn(v);
@@ -335,9 +361,10 @@ __global__ void winograd_stats_final_kernel(const float* __restrict__ partial,
 
 template <int PRO, int EPI>
 cudaError_t launch(const void* x, const void* partner, const void* u,
-                   const void* cvals, const void* scal, const void* scal2,
-                   void* out, void* aux, void* partial, void* stats, int N,
-                   int C, int Co, int H, int W, cudaStream_t stream) {
+                   const void* cvals, const void* avals, const void* dvals,
+                   const void* scal, const void* scal2, void* out, void* aux,
+                   void* out3, void* partial, void* stats, int N, int C,
+                   int Co, int H, int W, cudaStream_t stream) {
   auto kernel = winograd_f2x3_kernel<PRO, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -348,8 +375,9 @@ cudaError_t launch(const void* x, const void* partner, const void* u,
   dim3 grid(rows, (Co + kCoBlock - 1) / kCoBlock);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       (const bf16*)x, (const bf16*)partner, (const bf16*)u,
-      (const bf16*)cvals, (const float*)scal, (const float*)scal2,
-      (bf16*)out, (bf16*)aux, (float*)partial, C, Co, H, W, TH, TW, P);
+      (const bf16*)cvals, (const bf16*)avals, (const bf16*)dvals,
+      (const float*)scal, (const float*)scal2, (bf16*)out, (bf16*)aux,
+      (bf16*)out3, (float*)partial, C, Co, H, W, TH, TW, P);
   err = cudaGetLastError();
   if (err != cudaSuccess || EPI == EPI_NONE) return err;
   winograd_stats_final_kernel<<<2 * Co, kFinalThreads, 0, stream>>>(
@@ -369,17 +397,22 @@ int yolo_winograd_partial_rows(int N, int H, int W) {
 }
 
 // x [N, C, H, W] bf16; u [16, C, Co] bf16; partner [N, C, H, W] bf16
-// (PRO_DYEFF: y); cvals [N, Co, H, W] bf16 (EPI_BN_ACT: the forward
-// input); scal [2, C] f32 (PRO_BN_ACT) or [2, Co] (EPI_BN_ACT); scal2
-// [2, C] f32 (PRO_DYEFF: ds, dq).  Writes out [N, Co, H, W] bf16, aux
-// [N, C, H, W] bf16 when aux is not null, and for an epilogue with sums
-// stats [2, Co] f32 through partial, caller-allocated scratch of
-// yolo_winograd_partial_rows(N, H, W) * 2 * Co floats.  All contiguous.
+// (PRO_BN_ADD: the identity; PRO_DYEFF: y); cvals [N, Co, H, W] bf16
+// (EPI_BN_ACT, EPI_BN_ADD: the forward input); avals, dvals [N, Co, H, W]
+// bf16 (EPI_BN_ADD: the boundary activation and its cotangent); scal
+// [2, C] f32 (PRO_BN_ACT, PRO_BN_ADD) or [2, Co] (EPI_BN_ACT, EPI_BN_ADD);
+// scal2 [2, C] f32 (PRO_DYEFF: ds, dq).  The operands a mode does not read
+// may be null.  Writes out [N, Co, H, W] bf16, aux [N, C, H, W] bf16 when
+// aux is not null, out3 [N, Co, H, W] bf16 for EPI_BN_ADD, and for an
+// epilogue with sums stats [2, Co] f32 through partial, caller-allocated
+// scratch of yolo_winograd_partial_rows(N, H, W) * 2 * Co floats.  All
+// contiguous.
 // Launches on `stream` of device `device` and returns the cudaError_t of
 // the launches (cudaErrorInvalidValue for a mode it does not have).
 int yolo_winograd_f2x3(const void* x, const void* partner, const void* u,
-                       const void* cvals, const void* scal,
-                       const void* scal2, void* out, void* aux,
+                       const void* cvals, const void* avals,
+                       const void* dvals, const void* scal,
+                       const void* scal2, void* out, void* aux, void* out3,
                        void* partial, void* stats, int pro, int epi, int N,
                        int C, int Co, int H, int W, int device,
                        void* stream) {
@@ -387,15 +420,18 @@ int yolo_winograd_f2x3(const void* x, const void* partner, const void* u,
   if (err != cudaSuccess) return (int)err;
   if ((int64_t)N * H * W == 0 || C == 0 || Co == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define YOLO_WINOGRAD_MODE(P_, E_)                                          \
-  if (pro == P_ && epi == E_)                                               \
-    return (int)launch<P_, E_>(x, partner, u, cvals, scal, scal2, out, aux, \
-                               partial, stats, N, C, Co, H, W, s);
+#define YOLO_WINOGRAD_MODE(P_, E_)                                         \
+  if (pro == P_ && epi == E_)                                              \
+    return (int)launch<P_, E_>(x, partner, u, cvals, avals, dvals, scal,   \
+                               scal2, out, aux, out3, partial, stats, N, C, \
+                               Co, H, W, s);
   YOLO_WINOGRAD_MODE(PRO_NONE, EPI_NONE)
   YOLO_WINOGRAD_MODE(PRO_NONE, EPI_STATS)
   YOLO_WINOGRAD_MODE(PRO_BN_ACT, EPI_STATS)
+  YOLO_WINOGRAD_MODE(PRO_BN_ADD, EPI_STATS)
   YOLO_WINOGRAD_MODE(PRO_DYEFF, EPI_NONE)
   YOLO_WINOGRAD_MODE(PRO_DYEFF, EPI_BN_ACT)
+  YOLO_WINOGRAD_MODE(PRO_DYEFF, EPI_BN_ADD)
 #undef YOLO_WINOGRAD_MODE
   return (int)cudaErrorInvalidValue;
 }

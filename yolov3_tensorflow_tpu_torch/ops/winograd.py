@@ -1,6 +1,6 @@
 """Winograd F(2x2, 3x3) convolution (3x3, stride 1, SAME) of the PyTorch
-port: the kernel op ``winograd_call`` in the modes the flagship's train
-chain runs, its plain version, and the chain's two differentiable ops.
+port: the kernel op ``winograd_call`` in every mode the flagship's train
+chain runs, its plain version, and the chain's three differentiable ops.
 
 Port of ``yolov3_tensorflow_tpu/ops/winograd.py`` on NCHW tensors (the
 TPU kernel's [H, W, C, N] view is a TPU tiling choice and is dropped):
@@ -13,24 +13,28 @@ TPU kernel's [H, W, C, N] view is a TPU tiling choice and is dropped):
       PRO_NONE   + EPI_NONE     conv3x3 (tests)
       PRO_NONE   + EPI_STATS    hconv_stats forward
       PRO_BN_ACT + EPI_STATS    hconv_bn_act_stats forward (aux z)
+      PRO_BN_ADD + EPI_STATS    hconv_bn_add_act_stats forward (aux a)
       PRO_DYEFF  + EPI_NONE     hconv_stats input gradient (aux dye)
       PRO_DYEFF  + EPI_BN_ACT   hconv_bn_act_stats input gradient (aux)
+      PRO_DYEFF  + EPI_BN_ADD   hconv_bn_add_act_stats input gradient
+                                (aux dye, out3 the identity's gradient)
 
-    ``PRO_BN_ADD`` / ``EPI_BN_ADD`` (the residual-boundary modes of
-    ``hconv_bn_add_act_stats``) are not ported: they run only when
-    ``winograd_min_channels`` admits module 1's chain (ROADMAP Queue 2).
-  * :func:`hconv_stats`, :func:`hconv_bn_act_stats`: ``torch.autograd.
-    Function``s of the JAX custom VJPs; the weight gradient runs on the
-    library's convolution in bf16, as the JAX package leaves it to XLA.
+    The other pairs, which the JAX package never calls, raise.
+  * :func:`hconv_stats`, :func:`hconv_bn_act_stats`,
+    :func:`hconv_bn_add_act_stats`: ``torch.autograd.Function``s of the
+    JAX custom VJPs; the weight gradient runs on the library's
+    convolution in bf16, as the JAX package leaves it to XLA.
   * :func:`eligible`: the JAX package's shape rules, its v5e VMEM budget
     included, so the port routes exactly the convs JAX routes.
 
 The arithmetic, in the kernel's order (JAX ``_kernel``):
 
   1. prologue per input element: PRO_BN_ACT ``relu(bf16(bf16(x * inv_b)
-     + shift_b))`` with ``inv_b = bf16(inv)``; PRO_DYEFF ``bf16((dy + ds)
-     + (2 * dq) * y)`` in float32; the result outside the image is 0 (the
-     conv consumes the zero-padded prologue output);
+     + shift_b))`` with ``inv_b = bf16(inv)``; PRO_BN_ADD, the residual
+     boundary, ``relu(bf16(bf16(bf16(x * inv_b) + shift_b) + id))`` with
+     the identity ``id`` read at the same positions; PRO_DYEFF ``bf16((dy
+     + ds) + (2 * dq) * y)`` in float32; the result outside the image is 0
+     (the conv consumes the zero-padded prologue output);
   2. input transform ``V = BT d BT^T`` of each 4x4 patch (rows 2t-1 ..
      2t+2): BT's row combos then its column combos, each add rounded to
      bf16;
@@ -42,7 +46,11 @@ The arithmetic, in the kernel's order (JAX ``_kernel``):
      EPI_BN_ACT, the backward of a PRO_BN_ACT conv, ``g = o`` where
      ``bf16(bf16(c * inv_b) + shift_b) > 0`` (``c`` the forward input),
      else 0, the sums (sum g, sum g*c), and the output ``g * inv``;
-  6. one bf16 rounding on the store.
+     EPI_BN_ADD, the backward of a PRO_BN_ADD conv, ``g = o + d`` where
+     the boundary activation ``a > 0`` (``d`` the activation's own
+     cotangent), else 0, the sums (sum g, sum g*c), the output ``g *
+     inv`` and the second output ``out3 = g``;
+  6. one bf16 rounding on each store.
 
 On a CUDA tensor :func:`winograd_call` launches the hand-written kernel
 (``csrc/winograd.cu``) through its mode's launcher in :data:`KERNELS`,
@@ -83,8 +91,10 @@ EPI_NONE, EPI_STATS, EPI_BN_ACT, EPI_BN_ADD = 0, 1, 2, 3
 MODES = {(PRO_NONE, EPI_NONE): "conv",
          (PRO_NONE, EPI_STATS): "conv_stats",
          (PRO_BN_ACT, EPI_STATS): "bn_act_conv_stats",
+         (PRO_BN_ADD, EPI_STATS): "bn_add_conv_stats",
          (PRO_DYEFF, EPI_NONE): "dyeff_conv",
-         (PRO_DYEFF, EPI_BN_ACT): "dyeff_conv_bn_act"}
+         (PRO_DYEFF, EPI_BN_ACT): "dyeff_conv_bn_act",
+         (PRO_DYEFF, EPI_BN_ADD): "dyeff_conv_bn_add"}
 
 # ------------------------------------------------------- eligibility --
 # The JAX package's VMEM budget for the TPU v5e (winograd.py:86-93), kept
@@ -187,9 +197,11 @@ def _relu_bf16(t: torch.Tensor) -> torch.Tensor:
 
 def _prologue(x, partner, scal, scal2, pro):
     """The prologue result, bf16 [N, C, H, W]."""
-    if pro == PRO_BN_ACT:
+    if pro in (PRO_BN_ACT, PRO_BN_ADD):
         t = x * _per_channel(scal[0].to(torch.bfloat16))
-        return _relu_bf16(t + _per_channel(scal[1].to(torch.bfloat16)))
+        t = t + _per_channel(scal[1].to(torch.bfloat16))
+        # the residual boundary adds the identity after the apply
+        return _relu_bf16(t + partner if pro == PRO_BN_ADD else t)
     if pro == PRO_DYEFF:
         t = x.float() + _per_channel(scal2[0])
         return (t + _per_channel(2.0 * scal2[1]) * partner.float()).to(
@@ -211,12 +223,12 @@ def _combo(coefs, terms):
     return v
 
 
-def winograd_reference(x, u, partner=None, cvals=None, scal=None,
-                       scal2=None, pro=PRO_NONE, epi=EPI_NONE, aux=False):
+def winograd_reference(x, u, partner=None, cvals=None, avals=None,
+                       dvals=None, scal=None, scal2=None, pro=PRO_NONE,
+                       epi=EPI_NONE, aux=False):
     """Plain PyTorch version of :func:`winograd_call` (same arguments),
-    the kernel's arithmetic in the kernel's order (module docstring).
-    Any prologue of PRO_NONE, PRO_BN_ACT, PRO_DYEFF with any epilogue of
-    EPI_NONE, EPI_STATS, EPI_BN_ACT."""
+    the kernel's arithmetic in the kernel's order (module docstring), in
+    any prologue with any epilogue whose operands it is given."""
     n, c, h, w = x.shape
     th, tw = -(-h // 2), -(-w // 2)
     z = _prologue(x, partner, scal, scal2, pro)
@@ -249,16 +261,24 @@ def winograd_reference(x, u, partner=None, cvals=None, scal=None,
         outs.append(torch.stack([g.sum((0, 2, 3)),
                                  (g * cvals.float()).sum((0, 2, 3))]))
         o = g * _per_channel(scal[0])
-    elif epi != EPI_NONE:
-        raise NotImplementedError(f"winograd epilogue {epi}")
+    elif epi == EPI_BN_ADD:
+        # a was written by the forward's prologue, so a > 0 exactly where
+        # the boundary's pre-activation is
+        g = torch.where(avals.float() > 0, o + dvals.float(), 0.0)
+        outs.append(torch.stack([g.sum((0, 2, 3)),
+                                 (g * cvals.float()).sum((0, 2, 3))]))
+        o = g * _per_channel(scal[0])
     outs.insert(0, o.to(torch.bfloat16))
     if aux:
         outs.append(z)
+    if epi == EPI_BN_ADD:
+        outs.append(g.to(torch.bfloat16))
     return tuple(outs)
 
 
 # ------------------------------------------------------------ kernel --
-def _check_cuda_args(x, u, partner, cvals, scal, scal2, pro, epi):
+def _check_cuda_args(x, u, partner, cvals, avals, dvals, scal, scal2, pro,
+                     epi):
     """Device, dtype and shape checks of a kernel launch."""
     if x.device.type != "cuda":
         raise ValueError(f"winograd_call: no kernel for device {x.device}")
@@ -268,14 +288,18 @@ def _check_cuda_args(x, u, partner, cvals, scal, scal2, pro, epi):
         raise ValueError(f"winograd_call: the kernel takes channel counts "
                          f"that are multiples of 8, got {c} -> {co}")
     want = [("u", u, torch.bfloat16, (16, c, co))]
+    if pro in (PRO_BN_ADD, PRO_DYEFF):
+        want.append(("partner", partner, torch.bfloat16, (n, c, h, w)))
     if pro == PRO_DYEFF:
-        want += [("partner", partner, torch.bfloat16, (n, c, h, w)),
-                 ("scal2", scal2, torch.float32, (2, c))]
-    if epi == EPI_BN_ACT:
+        want.append(("scal2", scal2, torch.float32, (2, c)))
+    if epi in (EPI_BN_ACT, EPI_BN_ADD):
         want += [("cvals", cvals, torch.bfloat16, (n, co, h, w)),
                  ("scal", scal, torch.float32, (2, co))]
-    elif pro == PRO_BN_ACT:
+    elif pro in (PRO_BN_ACT, PRO_BN_ADD):
         want.append(("scal", scal, torch.float32, (2, c)))
+    if epi == EPI_BN_ADD:
+        want += [("avals", avals, torch.bfloat16, (n, co, h, w)),
+                 ("dvals", dvals, torch.bfloat16, (n, co, h, w))]
     for name, t, dt, shape in want:
         if t is None or t.device != x.device or t.dtype != dt \
                 or tuple(t.shape) != shape:
@@ -296,6 +320,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def winograd_call(x: torch.Tensor, u: torch.Tensor,
                   partner: Optional[torch.Tensor] = None,
                   cvals: Optional[torch.Tensor] = None,
+                  avals: Optional[torch.Tensor] = None,
+                  dvals: Optional[torch.Tensor] = None,
                   scal: Optional[torch.Tensor] = None,
                   scal2: Optional[torch.Tensor] = None,
                   pro: int = PRO_NONE, epi: int = EPI_NONE,
@@ -303,12 +329,15 @@ def winograd_call(x: torch.Tensor, u: torch.Tensor,
     """The fused Winograd conv of NCHW ``x`` [N, C, H, W] with the bf16
     transformed weights ``u`` [16, C, Co] (:func:`transform_weights`).
 
-    partner: y for PRO_DYEFF ([N, C, H, W]); cvals: the forward input for
-    EPI_BN_ACT ([N, Co, H, W]); scal: float32 [2, C] (inv, shift) for
-    PRO_BN_ACT or [2, Co] for EPI_BN_ACT; scal2: float32 [2, C] (ds, dq)
-    for PRO_DYEFF.  Activations are cast to bf16.  Returns (out bf16
-    [N, Co, H, W], [stats float32 [2, Co]], [aux bf16 [N, C, H, W]]), the
-    bracketed ones when the epilogue has sums and when ``aux`` is set.
+    partner: the identity for PRO_BN_ADD, y for PRO_DYEFF ([N, C, H, W]);
+    cvals: the forward input for EPI_BN_ACT and EPI_BN_ADD, avals the
+    boundary activation and dvals its cotangent for EPI_BN_ADD (each
+    [N, Co, H, W]); scal: float32 [2, C] (inv, shift) for PRO_BN_ACT and
+    PRO_BN_ADD or [2, Co] for EPI_BN_ACT and EPI_BN_ADD; scal2: float32
+    [2, C] (ds, dq) for PRO_DYEFF.  Activations are cast to bf16.  Returns
+    JAX's order (out bf16 [N, Co, H, W], [stats float32 [2, Co]], [aux
+    bf16 [N, C, H, W]], [out3 bf16 [N, Co, H, W]]), the bracketed ones
+    when the epilogue has sums, when ``aux`` is set and for EPI_BN_ADD.
 
     CUDA tensors go to the kernel through the mode's launcher in
     :data:`KERNELS`, which counts the launch; CPU tensors go to
@@ -316,25 +345,27 @@ def winograd_call(x: torch.Tensor, u: torch.Tensor,
     mode = MODES.get((pro, epi))
     if mode is None:
         raise NotImplementedError(
-            f"winograd_call: prologue {pro} with epilogue {epi} is not "
-            "ported; PRO_BN_ADD/EPI_BN_ADD (hconv_bn_add_act_stats) are "
-            "ROADMAP Queue 2")
+            f"winograd_call: prologue {pro} with epilogue {epi} is not a "
+            "mode of the kernel; the JAX package calls only the pairs of "
+            "winograd.MODES")
     bf = torch.bfloat16
     x = x.to(bf)
-    partner = None if partner is None else partner.to(bf)
-    cvals = None if cvals is None else cvals.to(bf)
+    partner, cvals, avals, dvals = (None if t is None else t.to(bf)
+                                    for t in (partner, cvals, avals, dvals))
     if x.device.type == "cpu":
-        return winograd_reference(x, u, partner, cvals, scal, scal2, pro,
-                                  epi, aux)
-    return KERNELS[mode](x, u, partner, cvals, scal, scal2, aux)
+        return winograd_reference(x, u, partner, cvals, avals, dvals, scal,
+                                  scal2, pro, epi, aux)
+    return KERNELS[mode](x, u, partner, cvals, avals, dvals, scal, scal2,
+                         aux)
 
 
 def _mode_kernel(pro: int, epi: int, mode: str):
     """The launcher of the kernel in one (prologue, epilogue) mode, with
     its own launch count ``.launches``."""
 
-    def launch(x, u, partner, cvals, scal, scal2, aux):
-        _check_cuda_args(x, u, partner, cvals, scal, scal2, pro, epi)
+    def launch(x, u, partner, cvals, avals, dvals, scal, scal2, aux):
+        _check_cuda_args(x, u, partner, cvals, avals, dvals, scal, scal2,
+                         pro, epi)
         lib = kernel_library()
         n, c, h, w = x.shape
         co = u.shape[-1]
@@ -342,10 +373,12 @@ def _mode_kernel(pro: int, epi: int, mode: str):
         x, u = x.contiguous(), u.contiguous()
         if u.data_ptr() % 16:  # the kernel reads u in 16-byte vectors
             u = u.clone()
-        partner, cvals, scal, scal2 = (None if t is None else t.contiguous()
-                                       for t in (partner, cvals, scal, scal2))
+        partner, cvals, avals, dvals, scal, scal2 = (
+            None if t is None else t.contiguous()
+            for t in (partner, cvals, avals, dvals, scal, scal2))
         out = torch.empty((n, co, h, w), dtype=torch.bfloat16, device=dev)
         aux_out = torch.empty_like(x) if aux else None
+        out3 = torch.empty_like(out) if epi == EPI_BN_ADD else None
         stats = partial = None
         if epi != EPI_NONE:
             rows = lib.yolo_winograd_partial_rows(n, h, w)
@@ -354,12 +387,12 @@ def _mode_kernel(pro: int, epi: int, mode: str):
             stats = torch.empty((2, co), dtype=torch.float32, device=dev)
         err = lib.yolo_winograd_f2x3(
             x.data_ptr(), _ptr(partner), u.data_ptr(), _ptr(cvals),
-            _ptr(scal), _ptr(scal2), out.data_ptr(), _ptr(aux_out),
-            _ptr(partial), _ptr(stats), pro, epi, n, c, co, h, w, dev.index,
-            _stream(x))
+            _ptr(avals), _ptr(dvals), _ptr(scal), _ptr(scal2),
+            out.data_ptr(), _ptr(aux_out), _ptr(out3), _ptr(partial),
+            _ptr(stats), pro, epi, n, c, co, h, w, dev.index, _stream(x))
         check_launch(lib, err, f"winograd_call ({mode})")
         launch.launches += 1
-        return tuple(t for t in (out, stats, aux_out) if t is not None)
+        return tuple(t for t in (out, stats, aux_out, out3) if t is not None)
 
     launch.__name__ = launch.__qualname__ = f"winograd_{mode}"
     launch.launches = 0
@@ -441,6 +474,41 @@ class HConvBnActStats(torch.autograd.Function):
                 sums[1].to(inv.dtype), sums[0].to(shift.dtype))
 
 
+class HConvBnAddActStats(torch.autograd.Function):
+    """a = relu(ident + x*inv + shift), y = conv3x3(a, w), with (sum,
+    sumsq) of y: the previous block's deferred residual boundary (its BN
+    apply, the add and the relu) rides the conv's input read, and the
+    boundary activation ``a``, this block's identity and the weight
+    gradient's input, is written once (JAX ``hconv_bn_add_act_stats``)."""
+
+    @staticmethod
+    def forward(ctx, x, ident, w, inv, shift):
+        u = transform_weights(w).to(torch.bfloat16)
+        y, stats, a = winograd_call(x, u, partner=ident,
+                                    scal=_scal(inv, shift), pro=PRO_BN_ADD,
+                                    epi=EPI_STATS, aux=True)
+        ctx.save_for_backward(x, w, inv, shift, y, a)
+        ctx.dtypes = x.dtype, ident.dtype
+        return y, a, stats[0], stats[1]
+
+    @staticmethod
+    def backward(ctx, dy, da_ext, ds, dq):
+        x, w, inv, shift, y, a = ctx.saved_tensors
+        dy, ds, dq = _zeros_for(dy, ds, dq, y)
+        # one kernel: the dy_eff prologue, the input-gradient conv, the
+        # boundary epilogue g = (conv + da_ext) * (a > 0) with g * inv
+        # (x's gradient), g (the identity's) and (sum g, sum g*x) ->
+        # (dshift, dinv); winograd_call casts da_ext to bf16, as JAX does
+        dx, sums, dye, dident = winograd_call(
+            dy, _rot_u(w), partner=y, cvals=x, avals=a, dvals=da_ext,
+            scal=_scal(inv, shift),
+            scal2=_scal(ds, dq), pro=PRO_DYEFF, epi=EPI_BN_ADD, aux=True)
+        x_dtype, ident_dtype = ctx.dtypes
+        return (dx.to(x_dtype), dident.to(ident_dtype),
+                _wgrad(a, w, dye).to(w.dtype), sums[1].to(inv.dtype),
+                sums[0].to(shift.dtype))
+
+
 def hconv_stats(x: torch.Tensor, w: torch.Tensor):
     """(y bf16 [N, Co, H, W], sum [Co], sumsq [Co]) of conv3x3(x, w) for
     NCHW ``x`` and OIHW ``w``, differentiable in both."""
@@ -452,6 +520,15 @@ def hconv_bn_act_stats(x: torch.Tensor, w: torch.Tensor, inv: torch.Tensor,
     """(y, sum, sumsq) of conv3x3(relu(x*inv + shift), w), the BN apply in
     bf16; differentiable in x, w, inv and shift."""
     return HConvBnActStats.apply(x, w, inv, shift)
+
+
+def hconv_bn_add_act_stats(x: torch.Tensor, ident: torch.Tensor,
+                           w: torch.Tensor, inv: torch.Tensor,
+                           shift: torch.Tensor):
+    """(y, a, sum, sumsq) with a = relu(ident + x*inv + shift) in bf16 and
+    y = conv3x3(a, w); differentiable in x, ident, w, inv and shift, and
+    through both y and a."""
+    return HConvBnAddActStats.apply(x, ident, w, inv, shift)
 
 
 class _Conv3x3(torch.autograd.Function):

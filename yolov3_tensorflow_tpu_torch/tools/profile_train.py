@@ -2,14 +2,17 @@
 
     python -m yolov3_tensorflow_tpu_torch.tools.profile_train \\
         [--backbone resnet-18] [--batch 128] [--backends fused xla] \\
-        [--conv-backend xla winograd] [--host-batch]
+        [--conv-backend xla winograd] [--winograd-min-channels 128 64] \\
+        [--host-batch]
 
 Builds ``YOLOv3Trainer`` for a YOLOv3 at 416x416 (the flagship ResNet-18
 unless ``--backbone`` names another ported one, e.g. resnet-18-v2; bf16,
 RAdam, augmentation on, seeded random weights, bench.py's labels) and,
 for each conv backend (``--conv-backend``: "xla" direct convolution,
-"winograd" the fused Winograd chain) and each noise backend, prints one
-JSON line:
+"winograd" the fused Winograd chain, once per channel floor of
+``--winograd-min-channels``: 128 runs module 2's second block on it, 64
+module 1's two blocks as well) and each noise backend, prints one JSON
+line:
 
   * ``step_ms`` / ``img_per_s``: median host-clock time of a train step
     ending in ``torch.cuda.synchronize()``, over ``--steps`` steps;
@@ -78,12 +81,13 @@ def _batch(n, seed):
     return images, labels
 
 
-def profile_backend(conv_backend, backend, args):
+def profile_backend(conv_backend, min_channels, backend, args):
     cfg = Config(input_image_size=(416, 416, 3), batch_size=args.batch,
                  max_boxes=32, optimizer="radam", compute_dtype="bfloat16",
                  is_augment=True, augment_backend=backend,
                  rectified_coord_num=-1, model_backbone=args.backbone,
-                 conv_backend=conv_backend)
+                 conv_backend=conv_backend,
+                 winograd_min_channels=min_channels)
     trainer = YOLOv3Trainer(cfg, "cuda", seed=args.seed)
     images, labels = _batch(args.batch, args.seed)
     if not args.host_batch:
@@ -129,7 +133,7 @@ def profile_backend(conv_backend, backend, args):
     step_ms = float(np.median(times))
     return {
         "backbone": args.backbone, "conv_backend": conv_backend,
-        "backend": backend, "batch": args.batch,
+        "winograd_min_channels": min_channels, "backend": backend, "batch": args.batch,
         "host_batch": args.host_batch, "step_ms": step_ms,
         "img_per_s": args.batch / step_ms * 1e3,
         "profiled_steps": args.profiled,
@@ -160,6 +164,8 @@ def main(argv=None):
                     choices=["fused", "xla"])
     ap.add_argument("--conv-backend", nargs="+", default=["xla"],
                     choices=["xla", "winograd"])
+    ap.add_argument("--winograd-min-channels", type=int, nargs="+",
+                    default=[128])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
@@ -172,11 +178,15 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
-    for conv_backend in args.conv_backend:
+    # the channel floor matters only to the Winograd chain
+    runs = [(conv, floor) for conv in args.conv_backend
+            for floor in (args.winograd_min_channels if conv == "winograd"
+                          else args.winograd_min_channels[:1])]
+    for conv_backend, min_channels in runs:
         for backend in args.backends:
             torch.cuda.reset_peak_memory_stats()
             print(json.dumps({"gpu": gpu, **profile_backend(
-                conv_backend, backend, args)}), flush=True)
+                conv_backend, min_channels, backend, args)}), flush=True)
             torch.cuda.empty_cache()
 
 

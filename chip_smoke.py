@@ -49,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -150,6 +151,76 @@ def cuda_time_ms(fn, iters: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# ptxas's report of a kernel: its name, then its stack and spills, then
+# its registers (and static shared memory)
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+PTXAS_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+WINOGRAD_INSTANTIATION = re.compile(
+    r"winograd_f2x3_kernelILi(\d)ELi(\d)ELb([01])E")
+
+
+def build_kernels(kernel_library):
+    """Build the kernel library (its compiler output printed as it was),
+    and return ptxas's report of each Winograd instantiation: (mode,
+    aligned) -> registers, static shared memory, stack and spills.  A
+    library built earlier in this checkout is compiled again by hand for
+    the report."""
+    import os
+    import tempfile
+
+    from yolov3_tensorflow_tpu_torch.ops.cuda_build import (BUILD_DIR,
+                                                            CSRC_DIR,
+                                                            NVCC_FLAGS)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR) as log:
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(log.fileno(), 1)
+        try:
+            kernel_library(verbose=True)
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        log.seek(0)
+        text = log.read()
+    print(text, end="", flush=True)
+    if "winograd_f2x3_kernel" not in text:
+        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "nvcc")
+        text = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-cubin", "-o",
+             os.path.join(BUILD_DIR, "winograd_report.cubin"),
+             os.path.join(CSRC_DIR, "winograd.cu")], check=True,
+            capture_output=True, text=True, timeout=600).stderr
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+    report, name = {}, None
+    for line in text.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            continue
+        inst = WINOGRAD_INSTANTIATION.search(name or "")
+        if inst is None:
+            continue
+        key = (wg.MODES[(int(inst.group(1)), int(inst.group(2)))],
+               inst.group(3) == "1")
+        m = PTXAS_SPILLS.search(line)
+        if m:
+            report.setdefault(key, {}).update(
+                stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                spill_load_bytes=int(m.group(3)))
+        m = PTXAS_USED.search(line)
+        if m:
+            report.setdefault(key, {}).update(
+                registers=int(m.group(1)),
+                static_smem_bytes=int(m.group(2) or 0))
+            name = None
+    return report
 
 
 def gpu_identity() -> str:
@@ -718,7 +789,9 @@ def check_winograd_kernel(device):
     ported mode, at the flagship chain's two shapes (WINOGRAD_SHAPES) and
     at edge cases (odd H and W with C = Co = 8, a ragged final block of
     tiles with Co below the kernel's channel block, a batch below 32 at the
-    chain's width, a wide W); two launches repeat bitwise.  Times each
+    chain's width, a wide W in two column segments, a last band of one
+    tile row, Co over two channel blocks, many small images, W = 11 on the
+    narrow-copy variant); two launches repeat bitwise.  Times each
     mode at both chain shapes beside its bound and the library's
     convolution (F.conv2d plus the float32 sums for the forward modes,
     torch.nn.grad.conv2d_input for the gradient modes; neither includes
@@ -734,7 +807,13 @@ def check_winograd_kernel(device):
         ("odd_13x11_c8", (2, 8, 8, 13, 11)),
         ("ragged_tiles_co24", (3, 16, 24, 7, 9)),
         ("n8_chain_width", (8, 128, 128, 26, 26)),
-        ("wide_w", (1, 8, 72, 6, 200))]
+        ("wide_w", (1, 8, 72, 6, 200)),
+        # a last band of one tile row, Co over two channel blocks, many
+        # small images (blocks crossing image boundaries), W = 11
+        ("last_band_one_row", (8, 128, 128, 50, 52)),
+        ("co128_two_blocks", (4, 64, 128, 20, 20)),
+        ("many_small_images", (32, 64, 64, 26, 26)),
+        ("w11_narrow_copies", (4, 32, 32, 10, 11))]
     records = []
     for i, (name, shape) in enumerate(cases):
         a = winograd_inputs(*shape, device, SEED + 50 + i)
@@ -806,7 +885,8 @@ def time_winograd_modes(shape_name, a, u, errors):
               shape=list(shape), bytes=nbytes, ops=ops,
               tensor_ops=tensor_ops, ms=kernel_ms, bound_ms=bound_ms,
               bound_by=bound_by, plain_ms=plain_ms,
-              library_ms=library_ms, max_abs_err=err,
+              library_ms=library_ms,
+              library_factor=kernel_ms / library_ms, max_abs_err=err,
               tflop_per_s=tensor_ops / kernel_ms / 1e9,
               gbytes_per_s=nbytes / kernel_ms / 1e6)
         name = f"winograd_call.{mode_name}"
@@ -1176,7 +1256,23 @@ def main() -> int:
           cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     with timed("build"):
-        kernel_library(verbose=True)
+        ptxas = build_kernels(kernel_library)
+    from yolov3_tensorflow_tpu_torch.ops import winograd as wg
+    for (mode_name, aligned), info in sorted(ptxas.items()):
+        # the launch's dynamic shared memory at each chain shape
+        pro, epi = next(k for k, v in wg.MODES.items() if v == mode_name)
+        smem = {name: wg.winograd_plan(
+            n, c, co, h, w, pro in (wg.PRO_BN_ADD, wg.PRO_DYEFF),
+            {wg.EPI_BN_ACT: 1, wg.EPI_BN_ADD: 3}.get(epi, 0)).smem_bytes
+            for name, (n, c, co, h, w) in WINOGRAD_SHAPES.items()}
+        phase("ptxas.winograd_f2x3_kernel", mode=mode_name,
+              variant="aligned" if aligned else "narrow", **info,
+              dynamic_smem_bytes=smem)
+    if len(ptxas) != 2 * len(wg.MODES) or any(
+            v.get("spill_store_bytes", 1) or v.get("spill_load_bytes", 1)
+            for v in ptxas.values()):
+        raise AssertionError(f"ptxas report: {len(ptxas)} Winograd "
+                             f"instantiations, or spills: {ptxas}")
 
     with timed("kernels"):
         records = check_stem_kernel(device)

@@ -234,8 +234,13 @@ def test_pool_kernel_rejects_bad_codes():
 
 # (N, C, Co, H, W): the chain's shape at batch 8, odd sizes, a ragged final
 # tile block, C = Co = 8, Co not a multiple of the kernel's block, a wide W
+# (two column segments); then a last band of one tile row at module 2's
+# width, Co = 128 over two channel blocks, many small images (blocks
+# crossing image boundaries, W = 26 on the narrow-copy variant), W = 11
 WINOGRAD_CASES = [(8, 128, 128, 52, 52), (2, 8, 8, 13, 11), (3, 16, 24, 7, 9),
-                  (1, 8, 72, 6, 200), (2, 8, 8, 2, 2)]
+                  (1, 8, 72, 6, 200), (2, 8, 8, 2, 2), (8, 128, 128, 50, 52),
+                  (4, 64, 128, 20, 20), (32, 64, 64, 26, 26),
+                  (4, 32, 32, 10, 11)]
 # least share of bf16 outputs bit-equal to the plain version's (measured
 # on an H100: 99.985% at the chain's shape, 100% at the small ones)
 WINOGRAD_BITWISE_SHARE = 0.999

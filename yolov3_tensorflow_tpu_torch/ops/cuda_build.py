@@ -38,8 +38,7 @@ _SIGNATURES = {
     "yolo_max_pool_s2_fwd": [_P] * 3 + [_I] * 9 + [_P],
     "yolo_max_pool_s2_bwd": [_P] * 3 + [_I] * 9 + [_P],
     "yolo_noisy_normalize": [_P] * 5 + [_I] * 4 + [_P],
-    "yolo_winograd_f2x3": [_P] * 13 + [_I] * 8 + [_P],
-    "yolo_winograd_partial_rows": [_I] * 3,
+    "yolo_winograd_f2x3": [_P] * 14 + [_I] * 13 + [_P],
 }
 
 

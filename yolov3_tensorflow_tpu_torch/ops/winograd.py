@@ -63,7 +63,7 @@ bit-equal.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -159,6 +159,138 @@ def eligible(shape_nhwc, co, kernel_size, strides, padding,
     bwd_ok = pick_wchunk(w, co, c, n, full_streams=2, main_streams=4,
                          aux=1) is not None
     return fwd_ok and bwd_ok
+
+
+# --------------------------------------------------- launch geometry --
+# The kernel's block (csrc/winograd.cu): at most TILES_PER_BLOCK 2x2
+# output tiles (wgmma's M) of one image, whole tile rows where a row has
+# at most that many tiles, else a column segment of one row, and
+# CO_BLOCK output channels.
+TILES_PER_BLOCK = 64
+CO_BLOCK = 64
+MAX_SMEM_BYTES = 232448  # a block's shared memory on an H100
+STAGES = 2  # the staging ring's chunks of input channels
+
+
+class WinogradPlan(NamedTuple):
+    """Launch geometry of one kernel call (:func:`winograd_plan`).
+
+    Block ``b`` of the 1-D grid is co-block ``b % co_blocks``, then column
+    segment, tile-row band and image in that order (:meth:`block`).  Band
+    ``i`` of an image holds tile rows ``i * rows .. i * rows + rows - 1``
+    (fewer in the last band) and stages the input rows ``row0 ..
+    row0 + nrows - 1`` (:meth:`band_rows`), which start on an even row.
+    ``aligned`` selects the 16-byte-copy variant; ``partial_rows`` is the
+    number of partial-sum rows, one per block of tiles (each co-block
+    writes its own channels of its row)."""
+    n: int
+    c: int
+    co: int
+    h: int
+    w: int
+    th: int            # tile rows, ceil(h / 2)
+    tw: int            # tile columns, ceil(w / 2)
+    rows: int          # tile rows per band (R)
+    seg_tiles: int     # tile columns per column segment (TWb)
+    segs: int          # column segments per band
+    bands: int         # bands per image
+    co_blocks: int
+    cch: int           # input channels per staging chunk
+    smem_bytes: int
+    aligned: bool
+    grid: int
+    partial_rows: int
+
+    def band_rows(self, band: int) -> Tuple[int, int]:
+        """(first row, row count) of the input rows band ``band`` stages:
+        rows 2*tr0 - 2 .. 2*tr0 + 2*R of its tile rows tr0 .. tr0+R-1,
+        clipped to the image."""
+        tr0 = band * self.rows
+        rb = min(self.rows, self.th - tr0)
+        row0 = max(2 * tr0 - 2, 0)
+        return row0, min(2 * tr0 + 2 * rb + 1, self.h) - row0
+
+    def block(self, b):
+        """(image, first tile row, tile rows, first tile column, tile
+        columns, co-block) of block ``b`` (an int or an integer array), as
+        the kernel decodes it."""
+        cb, rest = b % self.co_blocks, b // self.co_blocks
+        seg, rest = rest % self.segs, rest // self.segs
+        band, n = rest % self.bands, rest // self.bands
+        tr0, tc0 = band * self.rows, seg * self.seg_tiles
+        return (n, tr0, np.minimum(self.rows, self.th - tr0), tc0,
+                np.minimum(self.seg_tiles, self.tw - tc0), cb)
+
+
+def _u_run_bytes(c):
+    """One position's V (or U) buffer, and U_k's run in the laid-out U."""
+    return TILES_PER_BLOCK * _pad(c, 16) * 2 + 128
+
+
+def _region_floor(c, w, rows, seg_tiles, epi_inputs):
+    """The shared memory the staging ring shares with the two V and two
+    U buffers (later the block's f32 outputs) and, past them, the staged
+    rows of the epilogue's epi_inputs tensors."""
+    return (max(4 * _u_run_bytes(c), CO_BLOCK * 2 * rows * 2 * seg_tiles * 4)
+            + epi_inputs * CO_BLOCK * _pad(2 * rows * w, 8) * 2)
+
+
+def _smem_bytes(c, w, h, rows, seg_tiles, cch, partner, epi_inputs):
+    """The kernel's shared memory: the z band, then the staging ring of x
+    (and the partner) or, after it, V and U (two buffers each, later the
+    f32 outputs) and the staged epilogue inputs, then the prologue's
+    scalars and three mbarriers."""
+    run_p = _pad(min(2 * rows + 3, h) * w, 8)
+    z = (2 * rows + 2) * (2 * seg_tiles + 2) * c * 2
+    stage = STAGES * (2 if partner else 1) * cch * run_p * 2
+    return (z + max(_region_floor(c, w, rows, seg_tiles, epi_inputs), stage)
+            + 8 * c + 32)
+
+
+def _chunk_channels(c, w, h, rows, seg_tiles, partner, epi_inputs):
+    """Input channels per staging chunk: as many as the shared memory left
+    beside the rest of the block holds (a multiple of 8, at least 8, at
+    most C rounded up to 8)."""
+    run_p = _pad(min(2 * rows + 3, h) * w, 8)
+    per_channel = STAGES * (2 if partner else 1) * run_p * 2
+    rest = _smem_bytes(c, w, h, rows, seg_tiles, 0, partner, epi_inputs)
+    fit = max(0, MAX_SMEM_BYTES - rest + _region_floor(
+        c, w, rows, seg_tiles, epi_inputs)) // per_channel
+    return min(_pad(c, 8), max(8, fit // 8 * 8))
+
+
+def winograd_plan(n, c, co, h, w, partner=False,
+                  epi_inputs=0) -> WinogradPlan:
+    """The kernel's launch geometry for x [n, c, h, w] -> co channels
+    (``partner``: the prologue reads a second input; ``epi_inputs``: the
+    epilogue reads 0, 1 or 3 tensors of the output's shape).  Bands as
+    tall as the 64-tile block and shared memory allow; a row of more than
+    64 tiles is cut into equal column segments.  The 16-byte-copy variant
+    where the (n, c) plane and every band's first row start on 16 bytes
+    (x itself on 16 bytes: the launcher checks)."""
+    th, tw = -(-h // 2), -(-w // 2)
+    co_blocks = -(-co // CO_BLOCK)
+    for segs in range(-(-tw // TILES_PER_BLOCK), tw + 1):
+        seg_tiles = -(-tw // segs)
+        if -(-tw // seg_tiles) != segs:
+            continue  # the same split as a smaller segs
+        for rows in range(min(TILES_PER_BLOCK // seg_tiles, th), 0, -1):
+            cch = _chunk_channels(c, w, h, rows, seg_tiles, partner,
+                                  epi_inputs)
+            smem = _smem_bytes(c, w, h, rows, seg_tiles, cch, partner,
+                               epi_inputs)
+            if smem > MAX_SMEM_BYTES:
+                continue
+            bands = -(-th // rows)
+            starts = {max(2 * b * rows - 2, 0) for b in range(bands)}
+            aligned = (h * w * 2) % 16 == 0 and all(
+                (s * w * 2) % 16 == 0 for s in starts)
+            return WinogradPlan(n, c, co, h, w, th, tw, rows, seg_tiles,
+                                segs, bands, co_blocks, cch, smem, aligned,
+                                n * bands * segs * co_blocks,
+                                n * bands * segs)
+    raise ValueError(f"winograd_plan: no block of the kernel fits x "
+                     f"{(n, c, h, w)} -> {co} channels in shared memory")
 
 
 # ----------------------------------------------------------- weights --
@@ -379,17 +511,28 @@ def _mode_kernel(pro: int, epi: int, mode: str):
         out = torch.empty((n, co, h, w), dtype=torch.bfloat16, device=dev)
         aux_out = torch.empty_like(x) if aux else None
         out3 = torch.empty_like(out) if epi == EPI_BN_ADD else None
+        reads_partner = pro in (PRO_BN_ADD, PRO_DYEFF)
+        plan = winograd_plan(n, c, co, h, w, reads_partner,
+                             {EPI_BN_ACT: 1, EPI_BN_ADD: 3}.get(epi, 0))
+        # the 16-byte copies need x (and the partner) on 16 bytes too
+        aligned = plan.aligned and x.data_ptr() % 16 == 0 and (
+            not reads_partner or partner.data_ptr() % 16 == 0)
+        # U in the blocks' shared-memory layout, one run per (co-block, k)
+        ut = torch.empty(plan.co_blocks * 16 * _u_run_bytes(c),
+                         dtype=torch.uint8, device=dev)
         stats = partial = None
         if epi != EPI_NONE:
-            rows = lib.yolo_winograd_partial_rows(n, h, w)
-            partial = torch.empty((rows, 2, co), dtype=torch.float32,
-                                  device=dev)
+            partial = torch.empty((plan.partial_rows, 2, co),
+                                  dtype=torch.float32, device=dev)
             stats = torch.empty((2, co), dtype=torch.float32, device=dev)
         err = lib.yolo_winograd_f2x3(
-            x.data_ptr(), _ptr(partner), u.data_ptr(), _ptr(cvals),
+            x.data_ptr(), _ptr(partner), u.data_ptr(), ut.data_ptr(),
+            _ptr(cvals),
             _ptr(avals), _ptr(dvals), _ptr(scal), _ptr(scal2),
             out.data_ptr(), _ptr(aux_out), _ptr(out3), _ptr(partial),
-            _ptr(stats), pro, epi, n, c, co, h, w, dev.index, _stream(x))
+            _ptr(stats), pro, epi, n, c, co, h, w, plan.rows,
+            plan.seg_tiles, plan.segs, plan.cch, int(aligned), dev.index,
+            _stream(x))
         check_launch(lib, err, f"winograd_call ({mode})")
         launch.launches += 1
         return tuple(t for t in (out, stats, aux_out, out3) if t is not None)
